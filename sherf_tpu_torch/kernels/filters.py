@@ -1,0 +1,149 @@
+"""StyleGAN2 resampling primitives in plain torch, NCHW (counterpart of the
+``bias_act`` / ``setup_filter`` / ``upfirdn2d`` / ``conv2d_resample`` subset
+of ``sherf_tpu/kernels/filters.py``).
+
+Semantics follow the JAX functions (padding arithmetic, filter flipping,
+gains) so that shared weights reproduce outputs; only the layout differs:
+images here are (N, C, H, W) and conv weights (O, I, kh, kw).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_SQRT2 = float(np.sqrt(2))
+ACTIVATIONS = {
+    "linear": dict(fn=lambda x, a: x, def_alpha=0.0, def_gain=1.0),
+    "lrelu": dict(fn=lambda x, a: F.leaky_relu(x, a), def_alpha=0.2,
+                  def_gain=_SQRT2),
+}
+
+
+def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None, *, dim: int = 1,
+             act: str = "linear", alpha: Optional[float] = None,
+             gain: Optional[float] = None,
+             clamp: Optional[float] = None) -> torch.Tensor:
+    """Bias + activation + gain + clamp; ``dim`` is the channel axis."""
+    spec = ACTIVATIONS[act]
+    alpha = spec["def_alpha"] if alpha is None else float(alpha)
+    gain = spec["def_gain"] if gain is None else float(gain)
+    if b is not None:
+        shape = [1] * x.dim()
+        shape[dim] = b.shape[0]
+        x = x + b.reshape(shape)
+    x = spec["fn"](x, alpha)
+    if gain != 1.0:
+        x = x * gain
+    if clamp is not None and clamp >= 0:
+        x = torch.clamp(x, -clamp, clamp)
+    return x
+
+
+def setup_filter(f, normalize: bool = True, flip_filter: bool = False,
+                 gain: float = 1.0) -> np.ndarray:
+    """2D FIR filter as a float32 numpy array (1D inputs are outer-producted)."""
+    if f is None:
+        f = 1
+    f = np.asarray(f, dtype=np.float32)
+    if f.ndim == 0:
+        f = f[None]
+    if f.ndim == 1:
+        f = np.outer(f, f)
+    if normalize:
+        f = f / f.sum()
+    if flip_filter:
+        f = f[::-1, ::-1]
+    f = f * gain
+    return np.ascontiguousarray(f, dtype=np.float32)
+
+
+def _parse_scaling(s):
+    if isinstance(s, int):
+        return s, s
+    return int(s[0]), int(s[1])
+
+
+def _parse_padding(p):
+    if isinstance(p, int):
+        return p, p, p, p
+    p = list(p)
+    if len(p) == 2:
+        return p[0], p[0], p[1], p[1]
+    return tuple(p)
+
+
+def upfirdn2d(x: torch.Tensor, f: Optional[np.ndarray], up=1, down=1,
+              padding=0, flip_filter: bool = False,
+              gain: float = 1.0) -> torch.Tensor:
+    """Zero-stuff upsample -> pad/crop -> FIR (true convolution unless
+    ``flip_filter``) -> downsample.  x: (N, C, H, W)."""
+    N, C, H, W = x.shape
+    upx, upy = _parse_scaling(up)
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    if upx > 1 or upy > 1:
+        x = x.reshape(N, C, H, 1, W, 1)
+        x = F.pad(x, [0, upx - 1, 0, 0, 0, upy - 1])
+        x = x.reshape(N, C, H * upy, W * upx)
+    x = F.pad(x, [max(px0, 0), max(px1, 0), max(py0, 0), max(py1, 0)])
+    if min(px0, px1, py0, py1) < 0:
+        x = x[:, :, max(-py0, 0): x.shape[2] - max(-py1, 0),
+              max(-px0, 0): x.shape[3] - max(-px1, 0)]
+    if f is not None:
+        ker = np.asarray(f, dtype=np.float32)
+        if not flip_filter:
+            ker = ker[::-1, ::-1]
+        k = torch.as_tensor(np.ascontiguousarray(ker), dtype=x.dtype,
+                            device=x.device) * torch.tensor(gain, dtype=x.dtype)
+        x = F.conv2d(x, k[None, None].expand(C, 1, *k.shape).contiguous(),
+                     groups=C)
+    elif gain != 1.0:
+        x = x * torch.tensor(gain, dtype=x.dtype)
+    if downy > 1 or downx > 1:
+        x = x[:, :, ::downy, ::downx]
+    return x
+
+
+def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1.0):
+    """FIR upsampling (NCHW)."""
+    upx, upy = _parse_scaling(up)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fh, fw = f.shape
+    p = [px0 + (fw + upx - 1) // 2, px1 + (fw - upx) // 2,
+         py0 + (fh + upy - 1) // 2, py1 + (fh - upy) // 2]
+    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
+                     gain=gain * upx * upy)
+
+
+def conv2d_resample(x: torch.Tensor, w: torch.Tensor,
+                    f: Optional[np.ndarray] = None, up: int = 1, down: int = 1,
+                    padding=0, groups: int = 1,
+                    flip_weight: bool = True) -> torch.Tensor:
+    """Conv2d with optional FIR up/downsampling, the JAX package's generic
+    decomposition.  x: (N, C_in, H, W); w: (C_out, C_in // groups, kh, kw).
+    flip_weight=True means correlation (torch conv2d)."""
+    kh, kw = int(w.shape[2]), int(w.shape[3])
+    fh, fw = f.shape if f is not None else (1, 1)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    if up > 1:
+        px0 += (fw + up - 1) // 2
+        px1 += (fw - up) // 2
+        py0 += (fh + up - 1) // 2
+        py1 += (fh - up) // 2
+    if down > 1:
+        px0 += (fw - down + 1) // 2
+        px1 += (fw - down) // 2
+        py0 += (fh - down + 1) // 2
+        py1 += (fh - down) // 2
+    x = upfirdn2d(x, f if up > 1 else None, up=up,
+                  padding=[px0, px1, py0, py1], gain=up ** 2)
+    if not flip_weight and (kh > 1 or kw > 1):
+        w = w.flip([2, 3])
+    x = F.conv2d(x, w.to(x.dtype), groups=groups)
+    if down > 1:
+        x = upfirdn2d(x, f, down=down)
+    return x

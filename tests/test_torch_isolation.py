@@ -1,0 +1,70 @@
+"""``sherf_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX, flax,
+optax, orbax or the JAX package ``sherf_tpu``: the machine with the GPU has
+no JAX."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "sherf_tpu")
+
+CHILD = textwrap.dedent(f"""
+    import importlib, pkgutil, sys
+    BANNED = {BANNED!r}
+    banned = lambda name: name.split(".")[0] in BANNED
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if banned(name):
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if banned(m)}}
+    sys.meta_path.insert(0, Block())
+    import sherf_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(sherf_tpu_torch.__path__,
+                                                   "sherf_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    after = {{m for m in sys.modules if banned(m)}}
+    assert after == before, sorted(after - before)
+    print("imported", len(names))
+""")
+
+
+def test_import_pulls_in_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    p = subprocess.run([sys.executable, "-c", CHILD], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert int(p.stdout.split()[-1]) >= 20
+
+
+def _sources():
+    root = os.path.join(REPO, "sherf_tpu_torch")
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_banned_import_statement_anywhere():
+    """Also catches imports inside functions, which importing never runs."""
+    bad = []
+    for path in _sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}: {n}" for n in names
+                    if n.split(".")[0] in BANNED]
+    assert not bad, bad
