@@ -15,8 +15,11 @@
 //
 // What bounds them on an H100: operations.  Each (query, vertex) pair
 // costs ~9 f32 operations (3 sub, 3 mul, 2 add, 1 compare; ray_body_mask
-// ~14), and every vertex is reused by every query, so the bytes moved are
-// tiny next to N*V*9 flops against the 67 TFLOP/s f32 CUDA-core rate.
+// ~17), and every vertex is reused by every query, so the bytes moved are
+// tiny next to N*V*9 operations.  chip_smoke.py states the bound against
+// the 67 TFLOP/s f32 CUDA-core peak, which counts an FMA as two operations;
+// this code issues no FMA (see below), one operation per issue slot, so
+// the ceiling it can reach is about twice that bound.
 // Design: the whole vertex set is staged once per block into dynamic shared
 // memory as float4 (6890 * 16 B = 110 KB, under the 227 KB a block may
 // use, set with cudaFuncSetAttribute); one thread per query keeps a running

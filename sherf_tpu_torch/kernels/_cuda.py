@@ -12,8 +12,9 @@ The library is built at first use (never on import).  A failed build or
 load raises.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises if that is not 0.
 
-``LAUNCHES`` counts, per kernel wrapper, the calls that launched a CUDA
-kernel (CPU calls, which take the plain version, are not counted).
+``LAUNCHES`` counts, per kernel, the launches: each ``*_cuda`` function adds
+one right where it launches its kernel, and nowhere else (a call with
+nothing to do, and a CPU call, which takes the plain version, add none).
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ def compact_mask_plain(mask: torch.Tensor, cap: int):
 
 
 def compact_mask_cuda(mask: torch.Tensor, cap: int):
-    """CUDA kernel (no launch count; see :func:`compact_mask`)."""
+    """CUDA kernel; counts its launch (none for cap == 0 or n == 0)."""
     dev = mask.device
     _cuda.require(mask, "mask", torch.bool, (None,), dev)
     n = mask.shape[0]
@@ -52,6 +52,7 @@ def compact_mask_cuda(mask: torch.Tensor, cap: int):
         mask.data_ptr(), n, cap, idx.data_ptr(), valid.data_ptr(),
         scratch.data_ptr(), scratch[nblk:].data_ptr(),
         scratch[2 * nblk:].data_ptr(), _cuda.stream_of(mask)), "compact_mask")
+    _cuda.LAUNCHES["compact_mask"] += 1
     return idx, valid
 
 
@@ -62,7 +63,5 @@ def compact_mask(mask: torch.Tensor, cap: int):
     if cap < 0:
         raise ValueError(f"cap must be >= 0, got {cap}")
     if mask.is_cuda:
-        out = compact_mask_cuda(mask.to(torch.bool).contiguous(), int(cap))
-        _cuda.LAUNCHES["compact_mask"] += 1
-        return out
+        return compact_mask_cuda(mask.to(torch.bool).contiguous(), int(cap))
     return compact_mask_plain(mask, int(cap))

@@ -45,12 +45,12 @@ def _check_points(query, ref):
 # nn_1
 
 
-def nn_1_plain(q_c: torch.Tensor, v_c: torch.Tensor, chunk: int = PLAIN_CHUNK):
+def nn_1_plain(q_c: torch.Tensor, v_c: torch.Tensor):
     """Plain version on CENTRED inputs: (d2 (N,) f32, idx (N,) int32)."""
     d2s, idxs = [], []
     vx, vy, vz = (v_c[None, :, k] for k in range(3))
-    for s in range(0, q_c.shape[0], chunk):
-        q = q_c[s:s + chunk]
+    for s in range(0, q_c.shape[0], PLAIN_CHUNK):
+        q = q_c[s:s + PLAIN_CHUNK]
         dx = vx - q[:, 0:1]
         dy = vy - q[:, 1:2]
         dz = vz - q[:, 2:3]
@@ -66,7 +66,7 @@ def nn_1_plain(q_c: torch.Tensor, v_c: torch.Tensor, chunk: int = PLAIN_CHUNK):
 
 
 def nn_1_cuda(q_c: torch.Tensor, v_c: torch.Tensor):
-    """CUDA kernel on CENTRED inputs (no launch count; see :func:`nn_1`)."""
+    """CUDA kernel on CENTRED inputs; counts its launch."""
     dev = q_c.device
     _cuda.require(q_c, "query", torch.float32, (None, 3), dev)
     _cuda.require(v_c, "ref", torch.float32, (None, 3), dev)
@@ -81,6 +81,7 @@ def nn_1_cuda(q_c: torch.Tensor, v_c: torch.Tensor):
         _cuda.check(lib.sherf_nn1(q_c.data_ptr(), n, v_c.data_ptr(), nv,
                                   d2.data_ptr(), idx.data_ptr(),
                                   _cuda.stream_of(q_c)), "nn_1")
+        _cuda.LAUNCHES["nn_1"] += 1
     return d2, idx
 
 
@@ -90,9 +91,7 @@ def nn_1(query: torch.Tensor, ref: torch.Tensor):
     _check_points(query, ref)
     q_c, v_c = _centre(query, ref)
     if query.is_cuda:
-        out = nn_1_cuda(q_c, v_c)
-        _cuda.LAUNCHES["nn_1"] += 1
-        return out
+        return nn_1_cuda(q_c, v_c)
     return nn_1_plain(q_c, v_c)
 
 
@@ -109,15 +108,14 @@ def nn_1_tables(query: torch.Tensor, ref: torch.Tensor, tables: torch.Tensor):
 
 def ray_body_mask_plain(o_c: torch.Tensor, d: torch.Tensor, v_c: torch.Tensor,
                         threshold_sq: float,
-                        active: Optional[torch.Tensor] = None,
-                        chunk: int = PLAIN_CHUNK):
+                        active: Optional[torch.Tensor] = None):
     """Plain version on CENTRED origins/vertices: (N,) bool."""
     n = o_c.shape[0]
     thr = torch.tensor(threshold_sq, dtype=torch.float32, device=o_c.device)
     vx, vy, vz = (v_c[None, :, k] for k in range(3))
     outs = []
-    for s in range(0, n, chunk):
-        o, dr = o_c[s:s + chunk], d[s:s + chunk]
+    for s in range(0, n, PLAIN_CHUNK):
+        o, dr = o_c[s:s + PLAIN_CHUNK], d[s:s + PLAIN_CHUNK]
         dd = dr[:, 0:1] * dr[:, 0:1] + dr[:, 1:2] * dr[:, 1:2]
         dd = dd + dr[:, 2:3] * dr[:, 2:3]
         dd_inv = torch.reciprocal(torch.clamp(dd, min=1e-12))
@@ -142,7 +140,7 @@ def ray_body_mask_plain(o_c: torch.Tensor, d: torch.Tensor, v_c: torch.Tensor,
 
 
 def ray_body_mask_cuda(o_c, d, v_c, threshold_sq: float, active=None):
-    """CUDA kernel on CENTRED inputs (no launch count)."""
+    """CUDA kernel on CENTRED inputs; counts its launch."""
     dev = o_c.device
     _cuda.require(o_c, "ray_o", torch.float32, (None, 3), dev)
     n = o_c.shape[0]
@@ -163,6 +161,7 @@ def ray_body_mask_cuda(o_c, d, v_c, threshold_sq: float, active=None):
             o_c.data_ptr(), d.data_ptr(), act_ptr, n, v_c.data_ptr(), nv,
             float(threshold_sq), out.data_ptr(), _cuda.stream_of(o_c)),
             "ray_body_mask")
+        _cuda.LAUNCHES["ray_body_mask"] += 1
     return out
 
 
@@ -181,7 +180,5 @@ def ray_body_mask(ray_o: torch.Tensor, ray_d: torch.Tensor,
     d = ray_d.contiguous()
     if ray_o.is_cuda:
         act = None if active is None else active.to(torch.bool).contiguous()
-        out = ray_body_mask_cuda(o_c, d, v_c, threshold_sq, act)
-        _cuda.LAUNCHES["ray_body_mask"] += 1
-        return out
+        return ray_body_mask_cuda(o_c, d, v_c, threshold_sq, act)
     return ray_body_mask_plain(o_c, d, v_c, threshold_sq, active)
