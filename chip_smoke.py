@@ -6,18 +6,27 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels with nvcc, renders the production frame
-(512x512 rays x 48 samples, bf16, calibrated budgets — the configuration of
-``bench.py``) through ``sherf_tpu_torch`` with random weights drawn from a
-seeded ``torch.Generator``, and checks:
+It builds the port's CUDA kernels with nvcc and drives two paths of
+``sherf_tpu_torch`` at the production configuration (512x512 rays x 48
+samples, bf16, calibrated budgets — the configuration of ``bench.py``),
+with random weights drawn from a seeded ``torch.Generator``:
 
-  * every kernel of the frame was launched during the frame (launch counters
-    reset just before it and read just after);
-  * each kernel equals its plain torch version on the inputs the frame gave
-    it (indices, masks and compactions equal; squared distances bit-equal);
-  * the frame is finite, of the expected shape, with every budget-overflow
-    counter at zero, and the port's GPU path agrees with its CPU path on a
-    small input.
+  * serving: one rendered frame (phases ``frame`` and ``profile``);
+  * training: five steps of ``make_train_step`` at batch 1 (phases
+    ``train`` and ``train_profile``), then a 2-step ``training_loop`` that
+    writes stats.jsonl and a checkpoint (phase ``train_loop``).
+
+For each path the launch counters are reset just before it and read just
+after; every kernel of the path must have launched (the train step: per
+step 3 weighted_accumulate, 2 nn_1, 1 ray_body_mask, 6 compact_mask).  It
+checks that each kernel agrees with its plain torch version on the inputs
+the paths gave it (indices, masks and compactions equal; squared distances
+bit-equal; the table gradient within the f32 reassociation bound), that the
+frame is finite with every budget-overflow counter at zero, that the train
+steps have finite loss and gradient norm, zero overflow, move every
+parameter the loss reaches and an EMA apart from them, and that the port's
+GPU path agrees with its CPU path on a small input, forward
+(``small_input_vs_cpu``) and gradients (``small_train_vs_cpu``).
 
 Each phase prints one JSON line with its seconds.  The line before the last
 two is {"kernels": [...]} (times from CUDA events, medians); then the
@@ -40,7 +49,13 @@ WATCHDOG_S = 600
 # device-side names of the port's own CUDA kernels (csrc/*.cu)
 PORT_KERNELS = {"nn_1": ("nn1_kernel",),
                 "ray_body_mask": ("ray_body_mask_kernel",),
-                "compact_mask": ("cm_count", "cm_scan", "cm_scatter")}
+                "compact_mask": ("cm_count", "cm_scan", "cm_scatter"),
+                "weighted_accumulate": ("wa_kernel",)}
+# launches per train step at batch 1: 3 readout scales (weighted_accumulate),
+# point + canonical KNN, one ray mask, ray / point / exact compaction + 3
+# sparse-conv downsamples
+TRAIN_LAUNCHES = {"weighted_accumulate": 3, "nn_1": 2, "ray_body_mask": 1,
+                  "compact_mask": 6}
 # raised on the decoder's density bias for the small GPU-vs-CPU render, so
 # that random weights draw an opaque body (as tests/test_torch_e2e.py does)
 DENSITY_BIAS = 5.0
@@ -48,6 +63,7 @@ H = W = 512
 DEPTH = 48
 MARGIN = 1.15
 FRAME_ITERS = 5
+TRAIN_STEPS = 5
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  The f32
 # rate counts an FMA as two operations; the knn kernels' distance code is
 # never contracted to FMAs, so each of its operations takes one issue slot
@@ -98,6 +114,85 @@ def cuda_ms(fn, iters, torch):
     return statistics.median(times)
 
 
+def profiled(fn, torch):
+    """Run ``fn`` once under torch.profiler: wall ms, device busy ms (sum of
+    kernel times), idle share, the port's kernels and the top ops."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - ts) * 1e3
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # device-side events are the kernels; host-side ops carry the same time
+    # again as the device time of the kernels they launched
+    kernels = [e for e in ev if e.device_type != torch.autograd.DeviceType.CPU]
+    ops = [e for e in ev if e.device_type == torch.autograd.DeviceType.CPU]
+    check(kernels, "the profiler recorded no device kernel")
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)
+    port = {}
+    for key, names in PORT_KERNELS.items():
+        mine = [e for e in kernels if any(nm in e.key for nm in names)]
+        port[key] = {"device_ms": sum(e.self_device_time_total
+                                      for e in mine) / 1e3,
+                     "kernels": sum(e.count for e in mine)}
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "port_kernels": port,
+            "top_ops": [{"op": e.key[:60],
+                         "device_ms": e.self_device_time_total / 1e3,
+                         "calls": e.count} for e in top[:15]]}
+
+
+class Recorder:
+    """Within ``with``: every call of the listed ``*_cuda`` functions
+    appends its arguments to ``calls[key]`` (while ``on``) and goes on to
+    the kernel."""
+
+    def __init__(self, shims):
+        self.shims = shims
+        self.calls = {key: [] for _, _, key in shims}
+        self.on = True
+        self._orig = {}
+
+    def __enter__(self):
+        for mod, attr, key in self.shims:
+            orig = getattr(mod, attr)
+            self._orig[(mod, attr)] = orig
+
+            def shim(*args, _orig=orig, _key=key):
+                if self.on:
+                    self.calls[_key].append(args)
+                return _orig(*args)
+            setattr(mod, attr, shim)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, attr), orig in self._orig.items():
+            setattr(mod, attr, orig)
+
+
+def grad_rel_errors(model_a, model_b, floor=1e-8):
+    """{name: relative L2 of b's gradient against a's} for every parameter
+    whose gradient in ``model_a`` has a norm above ``floor``."""
+    out = {}
+    gb = dict(model_b.named_parameters())
+    for name, pa in model_a.named_parameters():
+        if pa.grad is None:
+            continue
+        ref = pa.grad.double().cpu()
+        norm = float(ref.norm())
+        if norm <= floor:
+            continue
+        got = gb[name].grad
+        got = ref.new_zeros(ref.shape) if got is None else got.double().cpu()
+        out[name] = float((got - ref).norm()) / norm
+    return out
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_all = time.perf_counter()
@@ -109,17 +204,22 @@ def main():
               file=sys.stderr)
         return 2
     import dataclasses
+    import tempfile
 
     import sherf_tpu_torch  # noqa: F401 — fails outside a checkout
     from sherf_tpu_torch.core.calibrate import (
         calibrate_budgets, calibrate_sparse_caps, measure_sparse_sites)
-    from sherf_tpu_torch.core.config import ModelConfig, RenderConfig
+    from sherf_tpu_torch.core.config import (DataConfig, ModelConfig,
+                                             RenderConfig, TrainConfig)
     from sherf_tpu_torch.core.diag import overflow_report
     from sherf_tpu_torch.data.synthetic import make_synthetic_batch
     from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
-    from sherf_tpu_torch.kernels import _cuda, compaction, knn
+    from sherf_tpu_torch.kernels import _cuda, compaction, knn, segment_accum
     from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
     from sherf_tpu_torch.smpl import big_pose_params, smpl_forward, synthetic_smpl
+    from sherf_tpu_torch.train import (create_train_state, make_train_step,
+                                       reconstruction_loss, training_loop)
+    from sherf_tpu_torch.train.checkpoint import latest_checkpoint
 
     # f32 paths run in full f32: no TF32 in cuDNN convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False
@@ -180,29 +280,19 @@ def main():
           exact_cap=int(M * fitted.exact_capacity_frac),
           prune_step_margin=fitted.prune_step_margin)
 
-    # ---- frame: the main path, through the kernels ----------------------
-    t0 = time.perf_counter()
-    recorded = {"nn_1": [], "ray_body_mask": [], "compact_mask": []}
     shims = [(knn, "nn_1_cuda", "nn_1"),
              (knn, "ray_body_mask_cuda", "ray_body_mask"),
-             (compaction, "compact_mask_cuda", "compact_mask")]
-    originals = {}
-    for mod, attr, key in shims:
-        orig = getattr(mod, attr)
-        originals[(mod, attr)] = orig
+             (compaction, "compact_mask_cuda", "compact_mask"),
+             (segment_accum, "weighted_accumulate_cuda", "weighted_accumulate")]
+    launches = {}
 
-        def shim(*args, _orig=orig, _key=key):
-            recorded[_key].append(args)
-            return _orig(*args)
-        setattr(mod, attr, shim)
-    _cuda.reset_launches()
-    try:
+    # ---- frame: the serving path, through the kernels --------------------
+    t0 = time.perf_counter()
+    with Recorder(shims) as rec_frame, torch.inference_mode():
+        _cuda.reset_launches()
         out, diag = model(batch, smpl_d)
         torch.cuda.synchronize()
-    finally:
-        for (mod, attr), orig in originals.items():
-            setattr(mod, attr, orig)
-    launches = dict(_cuda.LAUNCHES)
+        launches["frame"] = dict(_cuda.LAUNCHES)
     first_s = time.perf_counter() - t0
     img = out["image_raw"]
     overflow = overflow_report(diag)
@@ -210,58 +300,93 @@ def main():
     check(all(bool(torch.isfinite(v).all()) for v in out.values()),
           "non-finite frame output")
     check(all(v == 0 for v in overflow.values()), f"budget overflow {overflow}")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel was not launched by the frame: {launches}")
+    frame_kernels = ("nn_1", "ray_body_mask", "compact_mask")
+    check(all(launches["frame"][k] > 0 for k in frame_kernels),
+          f"a kernel was not launched by the frame: {launches['frame']}")
     frame_ms = []
-    for _ in range(FRAME_ITERS):
-        ts = time.perf_counter()
-        model(batch, smpl_d)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - ts) * 1e3)
-    acc = out["weights_image"]
-    phase("frame", t0, first_frame_s=round(first_s, 3), launches=launches,
-          overflow=overflow, frame_ms_median=statistics.median(frame_ms),
-          frame_ms=frame_ms, acc_mean=float(acc.mean()),
-          acc_max=float(acc.max()), peak_mem_gb=round(
-              torch.cuda.max_memory_allocated() / 2 ** 30, 2))
-
-    # ---- where one frame's device time goes (torch.profiler) -------------
-    t0 = time.perf_counter()
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    with torch.inference_mode():
+        for _ in range(FRAME_ITERS):
             ts = time.perf_counter()
             model(batch, smpl_d)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - ts) * 1e3
-        ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        # device-side events are the kernels; host-side ops carry the same
-        # time again as the device time of the kernels they launched
-        kernels = [e for e in ev if e.device_type != torch.autograd.DeviceType.CPU]
-        ops = [e for e in ev if e.device_type == torch.autograd.DeviceType.CPU]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)
-        port = {}
-        for key, names in PORT_KERNELS.items():
-            mine = [e for e in kernels if any(nm in e.key for nm in names)]
-            port[key] = {"device_ms": sum(e.self_device_time_total
-                                          for e in mine) / 1e3,
-                         "kernels": sum(e.count for e in mine)}
-        phase("profile", t0, frame_wall_ms_profiled=wall_ms,
-              device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
-              kernel_launches=sum(e.count for e in kernels),
-              port_kernels=port,
-              top_ops=[{"op": e.key[:60], "device_ms": e.self_device_time_total / 1e3,
-                        "calls": e.count} for e in top[:15]])
-    except Exception as e:  # noqa: BLE001 — the profile is informative only
-        phase("profile", t0, error=repr(e))
+            frame_ms.append((time.perf_counter() - ts) * 1e3)
+    acc = out["weights_image"]
+    phase("frame", t0, first_frame_s=round(first_s, 3),
+          launches=launches["frame"], overflow=overflow,
+          frame_ms_median=statistics.median(frame_ms), frame_ms=frame_ms,
+          acc_mean=float(acc.mean()), acc_max=float(acc.max()),
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
 
-    # ---- kernels vs their plain versions on the frame's own inputs -------
+    # ---- where one frame's device time goes (torch.profiler) -------------
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        prof = profiled(lambda: model(batch, smpl_d), torch)
+    phase("profile", t0, frame_wall_ms_profiled=prof.pop("wall_ms_profiled"),
+          **prof)
+    del out, diag, acc, img
+
+    # ---- train: the production train step, 5 steps at batch 1 ------------
+    t0 = time.perf_counter()
+    train_cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, density_noise=RenderConfig().density_noise))
+    tmodel = SHERFGenerator(train_cfg, out_sh=out_sh, device=dev)
+    random_init_(tmodel, torch.Generator().manual_seed(0))
+    tcfg = TrainConfig(batch_size=1)
+    state = create_train_state(tmodel, tcfg)
+    step_fn = make_train_step(tmodel, smpl_d, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = {n: p.detach().clone() for n, p in tmodel.named_parameters()}
+    step_ms, step_metrics, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(shims) as rec_train:
+        _cuda.reset_launches()
+        for i in range(TRAIN_STEPS):
+            rec_train.on = i == 0          # keep the first step's inputs
+            seen = dict(_cuda.LAUNCHES)
+            ts = time.perf_counter()
+            metrics = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            per_step.append({k: _cuda.LAUNCHES[k] - seen[k] for k in seen})
+            step_metrics.append({k: float(v) for k, v in metrics.items()})
+            if i == 0:
+                reached = {n for n, p in tmodel.named_parameters()
+                           if p.grad is not None}
+                unreached = sorted(set(before) - reached)
+                check(all(n.endswith("noise_strength") for n in unreached),
+                      f"parameters the loss does not reach: {unreached}")
+                still = [n for n in reached
+                         if torch.equal(before[n], dict(
+                             tmodel.named_parameters())[n].detach())]
+                check(not still, f"step 1 left parameters unchanged: {still[:5]}")
+        launches["train"] = dict(_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (m, n) in enumerate(zip(step_metrics, per_step)):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"train step {i + 1}: loss {m['loss']} grad_norm {m['grad_norm']}")
+        check(m["overflow"] == 0, f"train step {i + 1}: overflow {m['overflow']}")
+        check(n == TRAIN_LAUNCHES, f"train step {i + 1}: launches {n}, "
+              f"expected {TRAIN_LAUNCHES}")
+    params = dict(tmodel.named_parameters())
+    same_ema = [n for n in reached if torch.equal(state.ema[n], params[n])]
+    check(not same_ema, f"EMA equals the parameters: {same_ema[:5]}")
+    phase("train", t0, steps=TRAIN_STEPS, step_ms=step_ms,
+          step_ms_median_2_5=statistics.median(step_ms[1:]),
+          peak_mem_gb=round(peak_gb, 3), launches=launches["train"],
+          launches_per_step=per_step[0], metrics=step_metrics,
+          params_reached=len(reached), params_unreached=unreached)
+
+    t0 = time.perf_counter()
+    prof = profiled(lambda: step_fn(state, batch, gen), torch)
+    phase("train_profile", t0, step_wall_ms_profiled=prof.pop("wall_ms_profiled"),
+          **prof)
+    del before
+
+    # ---- kernels vs their plain versions on the paths' own inputs --------
     # (these direct *_cuda calls add to LAUNCHES, which was read above)
     t0 = time.perf_counter()
     rows, cases = [], []
-    errs = {"nn_1": 0.0, "ray_body_mask": 0.0, "compact_mask": 0.0}
+    errs = {k: 0.0 for k in PORT_KERNELS}
 
     def note_err(key, a, b):
         e = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
@@ -273,7 +398,13 @@ def main():
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    # nn_1: every call of the frame checked; the point-budget call timed
+    def by_path(key):
+        return {p: launches[p][key] for p in launches}
+
+    recorded = {k: rec_frame.calls[k] + rec_train.calls[k]
+                for k in ("nn_1", "ray_body_mask", "compact_mask")}
+    # nn_1: every call of the frame and of one train step checked; the
+    # frame's point-budget call timed
     for i, (q_c, v_c) in enumerate(recorded["nn_1"]):
         d2k, ik = knn.nn_1_cuda(q_c, v_c)
         d2p, ip = knn.nn_1_plain(q_c, v_c)
@@ -297,7 +428,8 @@ def main():
     rows.append({
         "name": "nn_1", "route": "cuda", "source": "sherf_tpu_torch/csrc/knn.cu",
         "replaces": "sherf_tpu/kernels/knn_pallas.py:608",
-        "launches": launches["nn_1"], "max_abs_err": errs["nn_1"],
+        "launches": launches["frame"]["nn_1"], "launches_by_path": by_path("nn_1"),
+        "max_abs_err": errs["nn_1"],
         "ms": cuda_ms(lambda: knn.nn_1_cuda(q_c, v_c), 5, torch),
         "plain_ms": cuda_ms(lambda: knn.nn_1_plain(q_c, v_c), 3, torch),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -324,7 +456,8 @@ def main():
         "name": "ray_body_mask", "route": "cuda",
         "source": "sherf_tpu_torch/csrc/knn.cu",
         "replaces": "sherf_tpu/kernels/knn_pallas.py:554",
-        "launches": launches["ray_body_mask"],
+        "launches": launches["frame"]["ray_body_mask"],
+        "launches_by_path": by_path("ray_body_mask"),
         "max_abs_err": errs["ray_body_mask"],
         "ms": cuda_ms(lambda: knn.ray_body_mask_cuda(o_c, d, v_c, thr, act), 5,
                       torch),
@@ -333,9 +466,9 @@ def main():
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "n": n,
         "rays_scanned": n_scanned})
 
-    # compact_mask: every call of the frame, plus the frame's occupancy over
-    # all 512*512*48 samples (what the point compaction reads without ray
-    # compaction) at the point budget
+    # compact_mask: every call of the frame and of one train step, plus the
+    # frame's occupancy over all 512*512*48 samples (what the point
+    # compaction reads without ray compaction) at the point budget
     from sherf_tpu_torch.kernels.occupancy import strided_occupancy
     from sherf_tpu_torch.nerf.renderer import linspace01
     with torch.no_grad():
@@ -369,7 +502,8 @@ def main():
         "name": "compact_mask", "route": "cuda",
         "source": "sherf_tpu_torch/csrc/compaction.cu",
         "replaces": "sherf_tpu/kernels/compaction.py:107",
-        "launches": launches["compact_mask"],
+        "launches": launches["frame"]["compact_mask"],
+        "launches_by_path": by_path("compact_mask"),
         "max_abs_err": errs["compact_mask"],
         "ms": cuda_ms(lambda: compaction.compact_mask_cuda(m, cap), 5, torch),
         "plain_ms": cuda_ms(lambda: compaction.compact_mask_plain(m, cap), 3,
@@ -377,7 +511,86 @@ def main():
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(compact_library, 5, torch), "n": m.shape[0],
         "cap": cap})
+    del full_mask
+
+    # weighted_accumulate: every call of the first train step, within the
+    # f32 reassociation bound of the atomics' sum order
+    wa_calls = rec_train.calls["weighted_accumulate"]
+    check(len(wa_calls) == TRAIN_LAUNCHES["weighted_accumulate"],
+          f"{len(wa_calls)} weighted_accumulate calls recorded in step 1")
+    for i, (ids, w, g, n_rows) in enumerate(wa_calls):
+        got = segment_accum.weighted_accumulate_cuda(ids, w, g, n_rows)
+        ref = segment_accum.weighted_accumulate_plain(ids, w, g, n_rows)
+        mag = segment_accum.weighted_accumulate_plain(ids, w.abs(), g.abs(),
+                                                      n_rows)
+        torch.cuda.synchronize()
+        e = note_err("weighted_accumulate", got, ref)
+        excess = float(((got - ref).abs() - 1e-5 * mag).max())
+        check(excess <= 1e-30, f"weighted_accumulate call {i}: |cuda - plain| "
+              f"exceeds 1e-5 * plain(|w|, |g|) by {excess} (max abs err {e})")
+        cases.append({"kernel": "weighted_accumulate", "call": i,
+                      "n": ids.shape[0], "k": ids.shape[1], "c": g.shape[1],
+                      "n_rows": n_rows, "max_abs_err": e,
+                      "within_bound": True})
+    ids, w, g, n_rows = max(wa_calls, key=lambda a: a[0].shape[0] * a[2].shape[1])
+    n, k = ids.shape
+    c = g.shape[1]
+    upd = (segment_accum._dedup_weights(ids.long(), w).to(torch.bfloat16)
+           .float()[:, :, None]
+           * g.to(torch.bfloat16).float()[:, None, :]).reshape(-1, c)
+    flat_ids = ids.reshape(-1).long()
+
+    def wa_library():
+        torch.zeros((n_rows, c), device=dev).index_add_(0, flat_ids, upd)
+    b_ms, b_by = bound(2 * n * k * c, n * k * 8 + n * c * 4 + n_rows * c * 4)
+    rows.append({
+        "name": "weighted_accumulate", "route": "cuda",
+        "source": "sherf_tpu_torch/csrc/segment_accum.cu",
+        "replaces": "sherf_tpu/kernels/segment_accum.py:93",
+        "launches": launches["train"]["weighted_accumulate"],
+        "launches_by_path": by_path("weighted_accumulate"),
+        "max_abs_err": errs["weighted_accumulate"],
+        "ms": cuda_ms(lambda: segment_accum.weighted_accumulate_cuda(
+            ids, w, g, n_rows), 5, torch),
+        "plain_ms": cuda_ms(lambda: segment_accum.weighted_accumulate_plain(
+            ids, w, g, n_rows), 3, torch),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(wa_library, 5, torch), "n": n, "k": k, "c": c,
+        "n_rows": n_rows})
+    del upd, flat_ids, wa_calls
+    rec_frame.calls.clear()
+    rec_train.calls.clear()
     phase("kernels", t0, cases=cases)
+
+    # ---- a 2-step training_loop: stats.jsonl and a checkpoint -------------
+    t0 = time.perf_counter()
+    del state, tmodel, step_fn
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as run_dir:
+        loop_cfg = TrainConfig(batch_size=1, total_kimg=0.002, report_imgs=1,
+                               outdir=run_dir)
+        _cuda.reset_launches()
+        loop_state = training_loop(train_cfg, loop_cfg, DataConfig(), smpl_d,
+                                   batch_source=lambda: batch, device=dev)
+        torch.cuda.synchronize()
+        loop_launches = dict(_cuda.LAUNCHES)
+        with open(os.path.join(run_dir, "stats.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        ckpt = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+        ckpt_mb = os.path.getsize(ckpt) / 2 ** 20 if ckpt else 0.0
+    loss_steps = [x["step"] for x in lines if "Loss/loss" in x]
+    check(loop_state.step == 2, f"training_loop ran {loop_state.step} steps")
+    check(loss_steps == [1, 2], f"stats.jsonl loss lines at steps {loss_steps}")
+    check(all(np.isfinite(x["Loss/loss"]) and x["Loss/overflow"] == 0
+              for x in lines if "Loss/loss" in x), "training_loop metrics")
+    check(ckpt is not None and ckpt.endswith("snapshot-000002.pt"),
+          f"training_loop checkpoint {ckpt}")
+    check(all(loop_launches[k] == 2 * v for k, v in TRAIN_LAUNCHES.items()),
+          f"training_loop launches {loop_launches}")
+    phase("train_loop", t0, steps=loop_state.step, launches=loop_launches,
+          stats_lines=len(lines), checkpoint_mb=round(ckpt_mb, 1))
+    del loop_state
+    torch.cuda.empty_cache()
 
     # ---- agreement with the CPU path on a small input --------------------
     t0 = time.perf_counter()
@@ -385,14 +598,15 @@ def main():
         cfg, compute_dtype="float32",
         render=RenderConfig(depth_resolution=16, density_noise=0.0))
     small = SHERFGenerator(small_cfg, out_sh=out_sh, device="cpu")
-    state = model.state_dict()
-    state["renderer.decoder.alpha.bias"] = (
-        state["renderer.decoder.alpha.bias"] + DENSITY_BIAS)
-    small.load_state_dict(state)
+    state_dict = model.state_dict()
+    state_dict["renderer.decoder.alpha.bias"] = (
+        state_dict["renderer.decoder.alpha.bias"] + DENSITY_BIAS)
+    small.load_state_dict(state_dict)
     small_batch = make_synthetic_batch(smpl, batch_size=1, H=24, W=24, seed=1,
                                        device="cpu")
-    ref, _ = small.eval()(small_batch, smpl)
-    got, _ = small.to(dev)(small_batch.to(dev), smpl_d)
+    with torch.no_grad():
+        ref, _ = small.eval()(small_batch, smpl)
+        got, _ = small.to(dev)(small_batch.to(dev), smpl_d)
     a = (ref["image_raw"].numpy() + 1) / 2
     b = (got["image_raw"].cpu().numpy() + 1) / 2
     mse = float(np.mean((a - b) ** 2))
@@ -402,6 +616,34 @@ def main():
     check(psnr >= 45.0, f"GPU vs CPU path on a small input: {psnr:.1f} dB < 45")
     phase("small_input_vs_cpu", t0, psnr_db=psnr, acc_max=acc_max,
           acc_mean=float(ref["weights_image"].mean()))
+
+    # ---- one train step's gradients: card against CPU ---------------------
+    t0 = time.perf_counter()
+    small_fit, _ = calibrate_budgets([small_batch], small_cfg, margin=MARGIN,
+                                     round_to=128)
+    grad_cfg = dataclasses.replace(small_cfg, render=small_fit)
+    grad_models = {}
+    for where, d_, b_, s_ in (("cpu", "cpu", small_batch, smpl),
+                              ("cuda", dev, small_batch.to(dev), smpl_d)):
+        mdl = SHERFGenerator(grad_cfg, out_sh=out_sh, device=d_)
+        mdl.load_state_dict(state_dict)
+        out_g, diag_g = mdl(b_, s_, train=True)
+        check(all(int(v) == 0 for v in diag_g.values()),
+              f"small train step overflow ({where}): {overflow_report(diag_g)}")
+        loss_g, _ = reconstruction_loss(out_g, b_, TrainConfig(batch_size=1))
+        loss_g.backward()
+        grad_models[where] = (mdl, float(loss_g.detach()))
+    rel = grad_rel_errors(grad_models["cpu"][0], grad_models["cuda"][0])
+    worst_name = max(rel, key=rel.get)
+    check(len(rel) > 50, f"only {len(rel)} parameters with a gradient")
+    check(rel[worst_name] <= 1e-3, f"GPU vs CPU gradients: {worst_name} "
+          f"relative L2 {rel[worst_name]} > 1e-3")
+    phase("small_train_vs_cpu", t0, loss_cpu=grad_models["cpu"][1],
+          loss_gpu=grad_models["cuda"][1], params_compared=len(rel),
+          worst_param=worst_name, worst_rel_l2=rel[worst_name],
+          ray_capacity_frac=small_fit.ray_capacity_frac,
+          point_capacity_frac=small_fit.point_capacity_frac,
+          exact_capacity_frac=small_fit.exact_capacity_frac)
 
     phase("total", t_all)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -34,3 +34,11 @@ class Diag(dict):
 def overflow_report(diag: Dict[str, torch.Tensor]) -> Dict[str, int]:
     """{name: host int}."""
     return {k: int(v) for k, v in diag.items()}
+
+
+def overflow_total(diag: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Total overflow as an f32 scalar tensor (for metrics dicts; no host
+    sync).  Zero for an empty dict."""
+    if not diag:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.stack([v.to(torch.float32).sum() for v in diag.values()]).sum()

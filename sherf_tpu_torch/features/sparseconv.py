@@ -1,5 +1,5 @@
 """Sparse 3D feature volume over the canonical SMPL body (torch counterpart of
-``sherf_tpu/features/sparseconv.py``; forward only).
+``sherf_tpu/features/sparseconv.py``).
 
 Features live on a static-capacity site list; an int32 dense index grid
 (site id + 1, 0 = empty) gives O(1) neighbour lookup.  Submanifold conv =
@@ -7,7 +7,11 @@ Features live on a static-capacity site list; an int32 dense index grid
 (kernel 3, stride 2, pad 1) = candidate parent sites, deduplicated and
 compacted to a static cap (``kernels.compaction.compact_mask``), then the
 3x3x3 stride-2 window per output site; readout = trilinear interpolation
-through the index grid.
+through the index grid, as a ``weighted_gather`` whose table gradient is the
+``weighted_accumulate`` kernel.  The convolutions' backward is autograd's
+(the JAX package's custom VJPs, ``sparseconv.py:217-272``, are plain XLA).
+BatchNorm runs on its running statistics in training too, as the JAX
+package does (``bn_train = False``).
 
 Duplicate coordinates: the JAX package resolves them with ``.at[].set``, the
 LAST writer winning (``sparseconv.py:107, 366``).  Here every such write
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 
 from sherf_tpu_torch.core.diag import Diag
 from sherf_tpu_torch.kernels.compaction import compact_mask
+from sherf_tpu_torch.kernels.segment_accum import weighted_gather
 
 VOXEL_SIZE = 0.005  # meters
 
@@ -101,7 +106,10 @@ def conv3d_by_ids(feats: torch.Tensor, nbr: torch.Tensor,
     feats (S_in, Ci); nbr (S_out, 27); weight (3, 3, 3, Ci, Co)."""
     ci, co = weight.shape[-2], weight.shape[-1]
     fp = torch.cat([feats.new_zeros(1, ci), feats], dim=0)
-    rows = fp[nbr.reshape(-1).long()].reshape(nbr.shape[0], -1)  # (S, 27*Ci)
+    # index_select: its backward is one index_add_ (advanced indexing's
+    # accumulating index_put_ is far slower, on the CPU above all)
+    rows = fp.index_select(0, nbr.reshape(-1).long()).reshape(
+        nbr.shape[0], -1)                                        # (S, 27*Ci)
     return rows @ weight.reshape(-1, co).to(feats.dtype)
 
 
@@ -162,11 +170,15 @@ _CORNERS8 = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
                      -1).reshape(8, 3)
 
 
-def trilinear_site_sample(feats: torch.Tensor, grid: torch.Tensor, shape,
-                          pos: torch.Tensor) -> torch.Tensor:
-    """Trilinear interpolation of the sparse volume at float dhw voxel
-    positions (N, 3); empty or out-of-bounds corners read zero.  f32 weights
-    and accumulation (the JAX readout's precision).  Returns (N, C) f32."""
+def trilinear_corners(grid: torch.Tensor, shape, pos: torch.Tensor):
+    """The 8 corner taps of a trilinear readout at float dhw voxel positions
+    (N, 3): (ids (N, 8) int32, w (N, 8) f32).  ids index the padded site
+    table (site + 1; 0 = the zero row, for an empty or out-of-bounds
+    corner); w is the f32 product of the per-axis weights (z * y) * x, zero
+    for an out-of-bounds corner.  Corner k is ``_CORNERS8[k]``.  Inside the
+    volume the taps equal the JAX corner-packed readout's
+    (``trilinear_site_sample_packed``); at its edges both put the same weight
+    on every real site."""
     p0f = torch.floor(pos)
     frac = pos - p0f
     p0 = p0f.long()
@@ -175,10 +187,24 @@ def trilinear_site_sample(feats: torch.Tensor, grid: torch.Tensor, shape,
     ok = _inbounds(corner, shape)
     ids = grid[torch.clamp(_flat(corner, shape), 0, grid.shape[0] - 1)] * ok
     w = torch.where(o[None] == 1, frac[:, None, :], 1.0 - frac[:, None, :])
-    w = w[..., 0] * w[..., 1] * w[..., 2]                     # (N, 8)
+    w = w[..., 0] * w[..., 1] * w[..., 2]
+    return ids.to(torch.int32), torch.where(ok, w, torch.zeros_like(w))
+
+
+def trilinear_site_sample(feats: torch.Tensor, grid: torch.Tensor, shape,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation of the sparse volume at float dhw voxel
+    positions (N, 3); empty or out-of-bounds corners read zero.  f32 weights
+    and accumulation (the JAX readout's precision).  Returns (N, C) f32.
+
+    One readout for serving and training: ``weighted_gather`` over the
+    zero-padded site table, whose backward accumulates the table gradient
+    with the ``weighted_accumulate`` kernel (the JAX package's train-mode
+    readout, ``sparseconv.py:584-639``; its eval-mode pair-packed form is a
+    TPU gather-count trick with the same forward)."""
+    ids, w = trilinear_corners(grid, shape, pos)
     fp = torch.cat([feats.new_zeros(1, feats.shape[-1]), feats], dim=0)
-    rows = fp[ids.long()].float()                             # (N, 8, C)
-    return (rows * w[..., None]).sum(dim=1)
+    return weighted_gather(fp, ids, w, w_grad=False)
 
 
 class MaskedBatchNorm(nn.Module):

@@ -1,8 +1,11 @@
 """StyleGAN2 triplane backbone (torch counterpart of
 ``sherf_tpu/features/stylegan2.py``): mapping, skip-architecture synthesis
-and ``StyleGAN2Backbone``, NCHW, modulated convs in the fused (grouped-conv)
-form the inference path uses.  The reference's fp16-above-res-32 policy is
-bf16 here, as in the JAX package.  Noise modes: "none" and "const".
+and ``StyleGAN2Backbone``, NCHW.  Modulated convs run fused (one grouped
+conv with per-sample weights, the inference form) or, in training, unfused
+(scale the input by the styles, one plain conv, scale by the demodulation
+coefficients), as the JAX package does (``fused_modconv=not train``).  The
+reference's fp16-above-res-32 policy is bf16 here, as in the JAX package.
+Noise modes: "none" and "const".
 """
 
 from __future__ import annotations
@@ -50,14 +53,25 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
                      styles: torch.Tensor, up: int = 1, padding: int = 0,
                      resample_filter: Optional[np.ndarray] = None,
                      demodulate: bool = True, flip_weight: bool = True,
-                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused modulated conv.  x (B, Cin, H, W); weight (Cout, Cin, kh, kw);
+                     noise: Optional[torch.Tensor] = None,
+                     fused_modconv: bool = True) -> torch.Tensor:
+    """Modulated conv.  x (B, Cin, H, W); weight (Cout, Cin, kh, kw);
     styles (B, Cin)."""
     B, Cin, H, W = x.shape
     Cout, _, kh, kw = weight.shape
     w = weight[None] * styles[:, None, :, None, None]     # (B, Cout, Cin, kh, kw)
     if demodulate:
         dcoefs = torch.rsqrt((w * w).sum(dim=(2, 3, 4)) + 1e-8)
+    if not fused_modconv:
+        x = x * styles[:, :, None, None].to(x.dtype)
+        x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
+                            padding=padding, flip_weight=flip_weight)
+        if demodulate:
+            x = x * dcoefs[:, :, None, None].to(x.dtype)
+        if noise is not None:
+            x = x + noise.to(x.dtype)
+        return x
+    if demodulate:
         w = w * dcoefs[:, :, None, None, None]
     y = conv2d_resample(x.reshape(1, B * Cin, H, W),
                         w.reshape(B * Cout, Cin, kh, kw).to(x.dtype),
@@ -86,7 +100,8 @@ class SynthesisLayer(nn.Module):
         self.up, self.padding = up, kernel_size // 2
         self.activation, self.conv_clamp, self.dtype = activation, conv_clamp, dtype
 
-    def forward(self, x, w, noise_mode: str = "none"):
+    def forward(self, x, w, noise_mode: str = "none",
+                fused_modconv: bool = True):
         styles = self.affine(w.float())
         noise = None
         if noise_mode == "const":
@@ -96,7 +111,8 @@ class SynthesisLayer(nn.Module):
         x = modulated_conv2d(
             x.to(self.dtype), self.weight.to(self.dtype), styles.to(self.dtype),
             up=self.up, padding=self.padding, resample_filter=DEFAULT_FILTER,
-            flip_weight=(self.up == 1), noise=noise)
+            flip_weight=(self.up == 1), noise=noise,
+            fused_modconv=fused_modconv)
         return bias_act(x, self.bias.to(x.dtype), act=self.activation,
                         gain=ACTIVATIONS[self.activation]["def_gain"],
                         clamp=self.conv_clamp)
@@ -114,10 +130,11 @@ class ToRGBLayer(nn.Module):
         self.weight_gain = float(1.0 / np.sqrt(in_channels * kernel_size ** 2))
         self.conv_clamp, self.dtype = conv_clamp, dtype
 
-    def forward(self, x, w):
+    def forward(self, x, w, fused_modconv: bool = True):
         styles = self.affine(w.float()) * self.weight_gain
         x = modulated_conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                             styles.to(self.dtype), demodulate=False)
+                             styles.to(self.dtype), demodulate=False,
+                             fused_modconv=fused_modconv)
         return bias_act(x, self.bias.to(x.dtype), clamp=self.conv_clamp)
 
 
@@ -140,16 +157,19 @@ class SynthesisBlock(nn.Module):
         self.torgb = ToRGBLayer(out_channels, img_channels, w_dim,
                                 conv_clamp=conv_clamp, dtype=dtype)
 
-    def forward(self, x, img, ws, noise_mode: str = "none"):
+    def forward(self, x, img, ws, noise_mode: str = "none",
+                fused_modconv: bool = True):
         w_iter = iter(ws.unbind(dim=1))
         if self.in_channels == 0:
             x = self.const[None].to(self.dtype).expand(ws.shape[0], -1, -1, -1)
         else:
-            x = self.conv0(x.to(self.dtype), next(w_iter), noise_mode=noise_mode)
-        x = self.conv1(x, next(w_iter), noise_mode=noise_mode)
+            x = self.conv0(x.to(self.dtype), next(w_iter), noise_mode=noise_mode,
+                           fused_modconv=fused_modconv)
+        x = self.conv1(x, next(w_iter), noise_mode=noise_mode,
+                       fused_modconv=fused_modconv)
         if img is not None:
             img = upsample2d(img, DEFAULT_FILTER)
-        y = self.torgb(x, next(w_iter)).float()
+        y = self.torgb(x, next(w_iter), fused_modconv=fused_modconv).float()
         img = img + y if img is not None else y
         return x, img
 
@@ -177,14 +197,16 @@ class SynthesisNetwork(nn.Module):
             self.num_ws += 1 if res == 4 else 2
         self.num_ws += 1
 
-    def forward(self, ws: torch.Tensor, noise_mode: str = "none"):
+    def forward(self, ws: torch.Tensor, noise_mode: str = "none",
+                fused_modconv: bool = True):
         ws = ws.float()
         x = img = None
         w_idx = 0
         for res in self.block_resolutions:
             n_conv = 1 if res == 4 else 2
             x, img = getattr(self, f"b{res}")(
-                x, img, ws[:, w_idx:w_idx + n_conv + 1], noise_mode=noise_mode)
+                x, img, ws[:, w_idx:w_idx + n_conv + 1], noise_mode=noise_mode,
+                fused_modconv=fused_modconv)
             w_idx += n_conv
         return img
 

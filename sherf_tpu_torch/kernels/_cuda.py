@@ -36,7 +36,8 @@ BUILD_DIR = PKG_ROOT / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"nn_1": 0, "ray_body_mask": 0, "compact_mask": 0}
+LAUNCHES = {"nn_1": 0, "ray_body_mask": 0, "compact_mask": 0,
+            "weighted_accumulate": 0}
 # seconds the last nvcc build took in this process (None: loaded from cache
 # or not built yet)
 BUILD_INFO = {"seconds": None}
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "sherf_compact_mask": (_I, [_P, _I, _I, _P, _P, _P, _P, _P, _P]),
     "sherf_compact_tile": (_I, []),
     "sherf_knn_max_vertices": (_I, []),
+    "sherf_weighted_accumulate": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    "sherf_wa_max_taps": (_I, []),
     "sherf_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -8,7 +8,8 @@ the sentinel N in the tail; valid = idx < N is a prefix.  Stability is
 load-bearing: the segmented ray march needs ascending ray-major order.
 
 CUDA tensors go to the three-pass kernel in ``csrc/compaction.cu``; CPU
-tensors to :func:`compact_mask_plain`.
+tensors to :func:`compact_mask_plain`.  Its integer outputs carry no
+gradient: the wrapper runs outside autograd.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ def compact_mask_cuda(mask: torch.Tensor, cap: int):
     return idx, valid
 
 
+@torch.no_grad()
 def compact_mask(mask: torch.Tensor, cap: int):
     """mask (N,) bool -> (idx (cap,) int32, valid (cap,) bool)."""
     if mask.dim() != 1:

@@ -10,7 +10,8 @@ default mode, which switches to it at larger sizes).
 
 Each wrapper takes the CUDA kernel (``csrc/knn.cu``) for a CUDA tensor and
 its plain torch version (``*_plain``, same arithmetic, bit-equal) for a CPU
-tensor.
+tensor.  The public wrappers run outside autograd: their outputs (indices,
+masks, and distances that only feed comparisons) carry no gradient.
 """
 
 from __future__ import annotations
@@ -85,6 +86,7 @@ def nn_1_cuda(q_c: torch.Tensor, v_c: torch.Tensor):
     return d2, idx
 
 
+@torch.no_grad()
 def nn_1(query: torch.Tensor, ref: torch.Tensor):
     """query (N, 3), ref (V, 3) float32 -> (dist_sq (N,) f32, idx (N,) int32)
     of the nearest reference point; ties go to the lowest index."""
@@ -165,6 +167,7 @@ def ray_body_mask_cuda(o_c, d, v_c, threshold_sq: float, active=None):
     return out
 
 
+@torch.no_grad()
 def ray_body_mask(ray_o: torch.Tensor, ray_d: torch.Tensor,
                   verts: torch.Tensor, threshold_sq: float,
                   active: Optional[torch.Tensor] = None) -> torch.Tensor:

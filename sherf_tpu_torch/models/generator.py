@@ -4,7 +4,11 @@ observation image, a sparse canonical feature volume built from
 pixel-aligned observation-vertex features, and the volumetric renderer.
 
 ``forward(batch, smpl)`` returns ``(out, diag)``: the image dict of the JAX
-generator and the renderer's budget-overflow counters.
+generator and the renderer's budget-overflow counters.  The forward records
+autograd's graph like any module: serving callers wrap it in
+``torch.inference_mode()`` or ``torch.no_grad()``.  ``train=True`` is the
+training forward (the backbone's unfused modulated convs, density noise
+from the caller's ``torch.Generator``).
 """
 
 from __future__ import annotations
@@ -94,10 +98,12 @@ class SHERFGenerator(nn.Module):
 
     # ------------------------------------------------------------------
     def synthesis(self, ws: torch.Tensor, batch: SHERFBatch, smpl: SMPLModel,
-                  noise_mode: str = "none"):
+                  noise_mode: str = "none", train: bool = False,
+                  generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         B = batch.obs_img.shape[0]
-        planes = self.backbone.synthesis(ws, noise_mode=noise_mode)  # NCHW
+        planes = self.backbone.synthesis(ws, noise_mode=noise_mode,
+                                         fused_modconv=not train)  # NCHW
         Hp, Wp = planes.shape[2:]
         planes = planes.permute(0, 2, 3, 1).reshape(
             B, Hp, Wp, cfg.n_planes, cfg.plane_channels).permute(0, 3, 1, 2, 4)
@@ -119,7 +125,8 @@ class SHERFGenerator(nn.Module):
             vol_feats, vol_coords, min_dhw, batch.ray_o, batch.ray_d,
             batch.near, batch.far, ctx_target, ctx_big, ctx_obs,
             batch.vertices, batch.t_vertices, batch.t_bounds, batch.obs_K,
-            batch.obs_R, batch.obs_T, smpl, ray_mask=batch.mask_at_box)
+            batch.obs_R, batch.obs_T, smpl, ray_mask=batch.mask_at_box,
+            train=train, generator=generator)
         H, W = batch.img.shape[1:3]
         out = {"image_raw": rgb.reshape(B, H, W, 3),
                "image_depth": depth.reshape(B, H, W),
@@ -128,14 +135,15 @@ class SHERFGenerator(nn.Module):
         return out, diag
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def forward(self, batch: SHERFBatch, smpl: SMPLModel,
                 truncation_psi: float = 1.0,
                 truncation_cutoff: Optional[int] = None,
-                noise_mode: str = "none"):
+                noise_mode: str = "none", train: bool = False,
+                generator: Optional[torch.Generator] = None):
         ws = self.mapping(batch.obs_img, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
-        return self.synthesis(ws, batch, smpl, noise_mode=noise_mode)
+        return self.synthesis(ws, batch, smpl, noise_mode=noise_mode,
+                              train=train, generator=generator)
 
 
 @torch.no_grad()

@@ -12,6 +12,12 @@ Budgeted mode (``point_capacity_frac < 1``):
   segmented march -> scatter the pixels back.
 Parity mode computes every sample and masks the output.
 
+Training (``train=True``) adds density noise ``sigma + N(0, 1) *
+density_noise`` to every decoded sample, drawn from the caller's
+``torch.Generator``; everything between the parameters and the pixels is
+differentiable, while the kernels' integer outputs (indices, masks) stay out
+of autograd.
+
 Batch items are independent; the renderer loops over them.  Overflow
 counters (survivors - budget, clamped at 0) go to a ``Diag`` dict returned
 beside the outputs; nonzero means the budget truncated real samples.
@@ -34,7 +40,7 @@ from sherf_tpu_torch.features.sparseconv import (
 from sherf_tpu_torch.features.transformer import PlaneTransformer
 from sherf_tpu_torch.geometry.rays import project_points
 from sherf_tpu_torch.kernels.compaction import compact_mask
-from sherf_tpu_torch.kernels.grid_sample import grid_sample_2d
+from sherf_tpu_torch.kernels.grid_sample import grid_sample_2d, triplane_sample_2d
 from sherf_tpu_torch.kernels.knn import nn_1, nn_1_tables, ray_body_mask
 from sherf_tpu_torch.kernels.occupancy import strided_occupancy
 from sherf_tpu_torch.nerf.decoders import NeRFDecoder
@@ -57,12 +63,15 @@ def linspace01(D: int, device) -> torch.Tensor:
 
 def sample_from_planes(planes: torch.Tensor, pts_norm: torch.Tensor):
     """Triplane lookup: planes (3, H, W, C), pts_norm (M, 3) in [-1, 1] ->
-    (3, M, C); plane axes xy / xz / zy."""
-    return torch.stack([
-        grid_sample_2d(planes[0], pts_norm[:, [0, 1]], align_corners=False),
-        grid_sample_2d(planes[1], pts_norm[:, [0, 2]], align_corners=False),
-        grid_sample_2d(planes[2], pts_norm[:, [2, 1]], align_corners=False),
-    ])
+    (3, M, C) in the planes' dtype; plane axes xy / xz / zy.  Below f32 the
+    weights are rounded to the planes' dtype, as the JAX package's
+    corner-packed sampler rounds them (``triplane_sample_2d``)."""
+    def sample(plane, xy):
+        if plane.dtype == torch.float32:
+            return grid_sample_2d(plane, xy, align_corners=False)
+        return triplane_sample_2d(plane, xy)
+    return torch.stack([sample(planes[k], pts_norm[:, axes])
+                        for k, axes in enumerate(([0, 1], [0, 2], [2, 1]))])
 
 
 def _rot3(pts: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
@@ -121,9 +130,18 @@ class SHERFRenderer(nn.Module):
                 ctx_obs: Sequence[PoseContext],
                 vertices, t_vertices, t_bounds,             # (B, 6890, 3), (B, 2, 3)
                 obs_K, obs_R, obs_T, smpl: SMPLModel,
-                ray_mask: Optional[torch.Tensor] = None):
-        """Returns (rgb (B, N, 3), depth (B, N), acc (B, N), diag)."""
+                ray_mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Returns (rgb (B, N, 3), depth (B, N), acc (B, N), diag).
+        ``train`` adds density noise from ``generator`` (required when
+        ``cfg.render.density_noise > 0``)."""
         rc = self.cfg.render
+        noise = None
+        if train and rc.density_noise > 0:
+            if generator is None:
+                raise ValueError("train mode with density_noise > 0 draws its "
+                                 "noise from an explicit torch.Generator")
+            noise = (generator, rc.density_noise)
         if rc.depth_resolution_importance > 0:
             raise NotImplementedError("the importance pass is not ported")
         if rc.prune_mode != "voxel":
@@ -137,7 +155,7 @@ class SHERFRenderer(nn.Module):
                 pick(vol_coords), min_dhw[b], ray_o[b], ray_d[b], near[b],
                 far[b], ctx_target[b], ctx_big[b], ctx_obs[b], vertices[b],
                 t_vertices[b], t_bounds[b], obs_K[b], obs_R[b], obs_T[b],
-                smpl, pick(ray_mask), diag))
+                smpl, pick(ray_mask), diag, noise))
         rgb, depth, acc = (torch.stack(t) for t in zip(*outs))
         return rgb, depth, acc, diag
 
@@ -145,7 +163,7 @@ class SHERFRenderer(nn.Module):
     def _render_one(self, planes, obs_img, obs_feat, vol_feats, vol_coords,
                     min_dhw, ray_o, ray_d, near, far, ct, cb, co, vertices,
                     t_vertices, t_bounds, obs_K, obs_R, obs_T, smpl, ray_mask,
-                    diag: Diag):
+                    diag: Diag, noise=None):
         rc = self.cfg.render
         cdt = self.cdt
         D = rc.depth_resolution
@@ -221,6 +239,11 @@ class SHERFRenderer(nn.Module):
                                  smpl, diag)
         rgb_pts = out["rgb"]
         sigma_pts = out["sigma"][:, 0]
+        if noise is not None:
+            gen, scale = noise
+            sigma_pts = sigma_pts + torch.randn(
+                sigma_pts.shape, generator=gen, device=sigma_pts.device,
+                dtype=sigma_pts.dtype) * scale
         dens = torch.where(exact_s, sigma_pts, torch.full_like(sigma_pts, -80.0))
 
         if idx is not None:

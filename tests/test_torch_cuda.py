@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from sherf_tpu_torch.kernels import compaction, knn
+from sherf_tpu_torch.kernels import compaction, knn, segment_accum
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +91,75 @@ def test_compact_mask_kernel_equals_plain(dev, n, p, cap):
     torch.cuda.synchronize()
     assert torch.equal(ik, ip)
     assert torch.equal(vk, vp)
+
+
+def _wa_inputs(rng, n, k, c, n_rows, sort):
+    ids = rng.randint(0, n_rows, (n, k)).astype(np.int32)
+    if sort:
+        # id-coherent rows, as compacted ray-major queries give: neighbouring
+        # rows read neighbouring sites
+        base = np.sort(rng.randint(0, n_rows - 4, n))
+        ids = (base[:, None] + rng.randint(0, 4, (n, k))).astype(np.int32)
+    dup = rng.rand(n) < 0.3
+    ids[dup, 5] = ids[dup, 1]
+    ids[rng.rand(n) < 0.2, 2] = 0
+    w = (rng.rand(n, k) * 2 - 0.5).astype(np.float32)
+    g = rng.randn(n, c).astype(np.float32)
+    return ids, w, g
+
+
+def _wa_check(dev, ids, w, g, n_rows):
+    """|kernel - plain| <= 1e-5 * plain(ids, |w|, |g|) + 1e-30: the f32
+    atomics sum in another order, so the bound is the reassociation error
+    of the absolute sums."""
+    t = lambda a: torch.from_numpy(a).to(dev)
+    got = segment_accum.weighted_accumulate_cuda(t(ids), t(w), t(g), n_rows)
+    ref = segment_accum.weighted_accumulate_plain(t(ids), t(w), t(g), n_rows)
+    mag = segment_accum.weighted_accumulate_plain(t(ids), t(np.abs(w)),
+                                                  t(np.abs(g)), n_rows)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (n_rows, g.shape[1])
+    assert bool(((got - ref).abs() <= 1e-5 * mag + 1e-30).all())
+    return got
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("c", [32, 96])
+def test_weighted_accumulate_kernel_matches_plain(dev, sort, c):
+    rng = np.random.RandomState(c + sort)
+    n_rows = 20_000
+    ids, w, g = _wa_inputs(rng, 300_000, 8, c, n_rows, sort)
+    before = segment_accum._cuda.LAUNCHES["weighted_accumulate"]
+    got = _wa_check(dev, ids, w, g, n_rows)
+    assert segment_accum._cuda.LAUNCHES["weighted_accumulate"] == before + 1
+    assert bool(got[0].abs().max() > 0)       # row 0 is computed
+
+
+def test_weighted_accumulate_kernel_edges(dev):
+    rng = np.random.RandomState(3)
+    # no rows: nothing launched, a zero table
+    before = segment_accum._cuda.LAUNCHES["weighted_accumulate"]
+    e = segment_accum.weighted_accumulate(
+        torch.zeros((0, 8), dtype=torch.int32, device=dev),
+        torch.zeros((0, 8), device=dev), torch.zeros((0, 5), device=dev), 7)
+    assert segment_accum._cuda.LAUNCHES["weighted_accumulate"] == before
+    assert e.shape == (7, 5) and not bool(e.any())
+    # ids outside [0, n_rows) dropped, n_rows of 1
+    ids, w, g = _wa_inputs(rng, 1000, 8, 5, 1, False)
+    ids = rng.randint(-3, 4, (1000, 8)).astype(np.int32)
+    got = _wa_check(dev, ids, w, g, 1)
+    assert bool(got.abs().max() > 0)
+    # K < 8 and a C that is not a multiple of 32
+    ids, w, g = _wa_inputs(rng, 5000, 8, 40, 300, False)
+    _wa_check(dev, np.ascontiguousarray(ids[:, :6]),
+              np.ascontiguousarray(w[:, :6]), g, 300)
+    with pytest.raises(ValueError):
+        segment_accum.weighted_accumulate_cuda(
+            torch.zeros((4, 9), dtype=torch.int32, device=dev),
+            torch.zeros((4, 9), device=dev),
+            torch.zeros((4, 2), device=dev), 3)
+    with pytest.raises(TypeError):
+        segment_accum.weighted_accumulate_cuda(
+            torch.zeros((4, 8), dtype=torch.int64, device=dev),
+            torch.zeros((4, 8), device=dev),
+            torch.zeros((4, 2), device=dev), 3)

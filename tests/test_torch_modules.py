@@ -20,6 +20,7 @@ from sherf_tpu.geometry import rays as j_rays
 from sherf_tpu.kernels import grid_sample as j_gs
 from sherf_tpu.kernels import occupancy as j_occ
 from sherf_tpu.nerf import decoders as j_dec
+from sherf_tpu.nerf import renderer as j_renderer
 from sherf_tpu.nerf import march as j_march
 from sherf_tpu.nerf import warp as j_warp
 from sherf_tpu import smpl as j_smpl
@@ -37,6 +38,7 @@ from sherf_tpu_torch.kernels import occupancy as t_occ
 from sherf_tpu_torch.nerf import decoders as t_dec
 from sherf_tpu_torch.nerf import march as t_march
 from sherf_tpu_torch.nerf import warp as t_warp
+from sherf_tpu_torch.nerf import renderer as t_renderer
 from sherf_tpu_torch.nerf.renderer import linspace01
 from sherf_tpu_torch import smpl as t_smpl
 
@@ -195,6 +197,73 @@ def test_grid_sample_matches():
     np.testing.assert_allclose(
         t_gs.grid_sample_3d(T(vol), T(c3)).numpy(),
         _np(j_gs.grid_sample_3d(jnp.asarray(vol), jnp.asarray(c3))), atol=1e-6)
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
+    """Distance in bf16 ulps (bit patterns as ordered integers)."""
+    def ordered(t):
+        i = t.to(torch.bfloat16).view(torch.int16).numpy().astype(np.int64)
+        return np.where(i < 0, -32768 - i, i)
+    return np.abs(ordered(a) - ordered(b))
+
+
+def _planes_and_points(seed, m=6000):
+    rng = np.random.RandomState(seed)
+    planes = rng.randn(3, 16, 24, 8).astype(np.float32)
+    pts = (rng.rand(m, 3) * 2.6 - 1.3).astype(np.float32)   # incl. outside
+    pts[:300] = rng.choice([-1.0, 1.0], (300, 3))          # on the edges
+    pts[300:600, 0] = 1.0
+    pts[600:900, 2] = -1.0
+    pts[900:1000] = np.round(pts[900:1000] * 4) / 4        # on texel rows
+    return planes, pts
+
+
+def test_sample_from_planes_bf16_matches_jax():
+    """bf16 planes: the JAX corner-packed sampler rounds its weights to
+    bf16 and returns bf16; the port's four-tap form must agree within one
+    bf16 ulp, points on the edges and outside [-1, 1] included."""
+    planes, pts = _planes_and_points(12)
+    jp = jnp.asarray(planes).astype(jnp.bfloat16)
+    yj = j_renderer.sample_from_planes(jp, jnp.asarray(pts))
+    assert yj.dtype == jnp.bfloat16
+    yt = t_renderer.sample_from_planes(T(planes).to(torch.bfloat16), T(pts))
+    assert yt.dtype == torch.bfloat16
+    ref = T(np.array(_np(yj.astype(jnp.float32))))
+    assert _bf16_ulps(yt.float(), ref).max() <= 1
+    assert bool(yt.float().abs().max() > 0)
+
+
+def test_sample_from_planes_f32_is_the_four_tap_lerp():
+    """The f32 path is bit for bit the four-tap lerp it was before the bf16
+    repair, and agrees with the JAX sampler to f32 rounding (atol 1e-6)."""
+    planes, pts = _planes_and_points(13)
+    yt = t_renderer.sample_from_planes(T(planes), T(pts))
+    assert yt.dtype == torch.float32
+
+    def lerp(img, c):
+        H, W, C = img.shape
+        x = ((c[:, 0] + 1.0) * W - 1.0) / 2.0
+        y = ((c[:, 1] + 1.0) * H - 1.0) / 2.0
+        x0f, y0f = torch.floor(x), torch.floor(y)
+        x0, y0 = x0f.long(), y0f.long()
+        wx, wy = (x - x0f)[:, None], (y - y0f)[:, None]
+
+        def tap(ix, iy):
+            ok = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
+            f = torch.clamp(iy, 0, H - 1) * W + torch.clamp(ix, 0, W - 1)
+            return img.reshape(H * W, C)[f].float() * ok[:, None]
+        top = tap(x0, y0) * (1 - wx) + tap(x0 + 1, y0) * wx
+        bot = tap(x0, y0 + 1) * (1 - wx) + tap(x0 + 1, y0 + 1) * wx
+        return top * (1 - wy) + bot * wy
+    p = T(pts)
+    old = torch.stack([lerp(T(planes[0]), p[:, [0, 1]]),
+                       lerp(T(planes[1]), p[:, [0, 2]]),
+                       lerp(T(planes[2]), p[:, [2, 1]])])
+    assert torch.equal(yt, old)
+    np.testing.assert_allclose(
+        yt.numpy(), _np(j_renderer.sample_from_planes(jnp.asarray(planes),
+                                                      jnp.asarray(pts))),
+        atol=1e-6)
 
 
 def test_linspace_matches_jnp():
