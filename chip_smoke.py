@@ -6,23 +6,31 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels with nvcc and drives two paths of
+It builds the port's CUDA kernels with nvcc and drives four paths of
 ``sherf_tpu_torch`` at the production configuration (512x512 rays x 48
 samples, bf16, calibrated budgets — the configuration of ``bench.py``),
 with random weights drawn from a seeded ``torch.Generator``:
 
   * serving: one rendered frame (phases ``frame`` and ``profile``);
+  * the clustered-KNN serving configurations on the same scene and weights:
+    ``knn_cluster.CLUSTERED`` on (phase ``cluster_frame``), and on with
+    ``render.knn_shortlist = 8`` (phase ``shortlist_frame``);
   * training: five steps of ``make_train_step`` at batch 1 (phases
     ``train`` and ``train_profile``), then a 2-step ``training_loop`` that
     writes stats.jsonl and a checkpoint (phase ``train_loop``).
 
 For each path the launch counters are reset just before it and read just
-after; every kernel of the path must have launched (the train step: per
-step 3 weighted_accumulate, 2 nn_1, 1 ray_body_mask, 6 compact_mask).  It
-checks that each kernel agrees with its plain torch version on the inputs
-the paths gave it (indices, masks and compactions equal; squared distances
-bit-equal; the table gradient within the f32 reassociation bound), that the
-frame is finite with every budget-overflow counter at zero, that the train
+after, and must be what the path launches (the frame: 2 nn_1, 1
+ray_body_mask, 6 compact_mask; cluster_frame: 2 nn_1_clustered, 1
+ray_body_mask_clustered, 6 compact_mask; shortlist_frame: 2 nn_1_shortlist,
+1 ray_body_mask_clustered, 6 compact_mask; the train step, per step: 3
+weighted_accumulate, 2 nn_1, 1 ray_body_mask, 6 compact_mask).  It checks
+that each kernel agrees with its plain torch version on the inputs the
+paths gave it (indices, masks and compactions equal; squared distances
+bit-equal; the table gradient within the f32 reassociation bound), that
+each clustered call agrees with the full-scan kernel on the same inputs,
+that every frame is finite with every budget-overflow counter at zero and
+the clustered frames within 45 dB of the default frame, that the train
 steps have finite loss and gradient norm, zero overflow, move every
 parameter the loss reaches and an EMA apart from them, and that the port's
 GPU path agrees with its CPU path on a small input, forward
@@ -50,12 +58,21 @@ WATCHDOG_S = 600
 PORT_KERNELS = {"nn_1": ("nn1_kernel",),
                 "ray_body_mask": ("ray_body_mask_kernel",),
                 "compact_mask": ("cm_count", "cm_scan", "cm_scatter"),
-                "weighted_accumulate": ("wa_kernel",)}
-# launches per train step at batch 1: 3 readout scales (weighted_accumulate),
-# point + canonical KNN, one ray mask, ray / point / exact compaction + 3
-# sparse-conv downsamples
-TRAIN_LAUNCHES = {"weighted_accumulate": 3, "nn_1": 2, "ray_body_mask": 1,
-                  "compact_mask": 6}
+                "weighted_accumulate": ("wa_kernel",),
+                "nn_1_clustered": ("nn1_cluster_kernel",),
+                "nn_1_shortlist": ("nn1_shortlist_kernel",),
+                "ray_body_mask_clustered": ("ray_cluster_kernel",)}
+NONE = dict.fromkeys(PORT_KERNELS, 0)
+# launches per frame at batch 1: point + canonical KNN, one ray mask, ray /
+# point / exact compaction + 3 sparse-conv downsamples
+FRAME_LAUNCHES = {**NONE, "nn_1": 2, "ray_body_mask": 1, "compact_mask": 6}
+CLUSTER_LAUNCHES = {**NONE, "nn_1_clustered": 2, "ray_body_mask_clustered": 1,
+                    "compact_mask": 6}
+SHORTLIST_LAUNCHES = {**NONE, "nn_1_shortlist": 2,
+                      "ray_body_mask_clustered": 1, "compact_mask": 6}
+# per train step: the frame's kernels + 3 readout scales (weighted_accumulate)
+TRAIN_LAUNCHES = {**FRAME_LAUNCHES, "weighted_accumulate": 3}
+KNN_SHORTLIST = 8        # any value > 0 switches the shortlist on
 # raised on the decoder's density bias for the small GPU-vs-CPU render, so
 # that random weights draw an opaque body (as tests/test_torch_e2e.py does)
 DENSITY_BIAS = 5.0
@@ -70,9 +87,13 @@ TRAIN_STEPS = 5
 # and the ceiling they can reach is twice the bound printed from this rate.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
-# f32 operations per (query, vertex) pair in csrc/knn.cu
+# f32 operations per (query, vertex) pair in csrc/knn.cu and knn_cluster.cu
 NN1_OPS_PER_PAIR = 9     # 3 sub, 3 mul, 2 add, 1 compare
 RBM_OPS_PER_PAIR = 17    # 3 sub, 3+3 mul, 2+2 add (a, b), 2 mul, 1 sub, 1 min
+# queries farther than this from the vertex centroid are the padding that
+# ray compaction parks at 1e6 m: f32 cluster bounds at that distance are
+# looser than a body's size, so the full-scan comparison leaves them out
+FAR_M = 1e3
 
 
 class SmokeFailure(Exception):
@@ -214,7 +235,8 @@ def main():
     from sherf_tpu_torch.core.diag import overflow_report
     from sherf_tpu_torch.data.synthetic import make_synthetic_batch
     from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
-    from sherf_tpu_torch.kernels import _cuda, compaction, knn, segment_accum
+    from sherf_tpu_torch.kernels import (_cuda, compaction, knn, knn_cluster,
+                                         segment_accum)
     from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
     from sherf_tpu_torch.smpl import big_pose_params, smpl_forward, synthetic_smpl
     from sherf_tpu_torch.train import (create_train_state, make_train_step,
@@ -300,9 +322,8 @@ def main():
     check(all(bool(torch.isfinite(v).all()) for v in out.values()),
           "non-finite frame output")
     check(all(v == 0 for v in overflow.values()), f"budget overflow {overflow}")
-    frame_kernels = ("nn_1", "ray_body_mask", "compact_mask")
-    check(all(launches["frame"][k] > 0 for k in frame_kernels),
-          f"a kernel was not launched by the frame: {launches['frame']}")
+    check(launches["frame"] == FRAME_LAUNCHES,
+          f"frame launches {launches['frame']}, expected {FRAME_LAUNCHES}")
     frame_ms = []
     with torch.inference_mode():
         for _ in range(FRAME_ITERS):
@@ -323,7 +344,84 @@ def main():
         prof = profiled(lambda: model(batch, smpl_d), torch)
     phase("profile", t0, frame_wall_ms_profiled=prof.pop("wall_ms_profiled"),
           **prof)
-    del out, diag, acc, img
+    del out, diag, acc
+
+    # ---- the clustered-KNN configurations of the same frame ---------------
+    def survivors(calls):
+        """ray, point and exact survivors: the masks of a frame's first
+        three compactions."""
+        return {k: int(m.sum()) for k, (m, _) in
+                zip(("rays", "points", "exact"), calls["compact_mask"][:3])}
+
+    frame_survivors = survivors(rec_frame.calls)
+    cluster_shims = [(knn_cluster, "nn_1_clustered", "nn_1_clustered"),
+                     (knn_cluster, "nn_1_shortlist", "nn_1_shortlist"),
+                     (knn_cluster, "ray_body_mask_clustered",
+                      "ray_body_mask_clustered"),
+                     (compaction, "compact_mask_cuda", "compact_mask")]
+    sl_model = SHERFGenerator(dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, knn_shortlist=KNN_SHORTLIST)), out_sh=out_sh,
+        device=dev).eval()
+    sl_model.load_state_dict(model.state_dict())
+    rec_cluster = {}
+    for name, mdl, expect in (("cluster_frame", model, CLUSTER_LAUNCHES),
+                              ("shortlist_frame", sl_model, SHORTLIST_LAUNCHES)):
+        t0 = time.perf_counter()
+        knn_cluster.CLUSTERED = True
+        with Recorder(cluster_shims) as rec, torch.inference_mode():
+            _cuda.reset_launches()
+            out_c, diag_c = mdl(batch, smpl_d)
+            torch.cuda.synchronize()
+            launches[name] = dict(_cuda.LAUNCHES)
+        rec_cluster[name] = rec.calls
+        img_c = out_c["image_raw"]
+        overflow_c = overflow_report(diag_c)
+        check(all(bool(torch.isfinite(v).all()) for v in out_c.values()),
+              f"{name}: non-finite frame output")
+        check(all(v == 0 for v in overflow_c.values()),
+              f"{name}: budget overflow {overflow_c}")
+        check((name == "shortlist_frame") == ("knn_shortlist_overflow"
+                                              in overflow_c),
+              f"{name}: overflow counters {sorted(overflow_c)}")
+        check(launches[name] == expect,
+              f"{name}: launches {launches[name]}, expected {expect}")
+        a, b = (img.double() + 1) / 2, (img_c.double() + 1) / 2
+        mse = float(((a - b) ** 2).mean())
+        psnr = "inf" if mse == 0 else 10 * np.log10(1.0 / mse)
+        check(mse == 0 or psnr >= 45.0,
+              f"{name}: image vs the default frame at {psnr} dB < 45")
+        with torch.inference_mode():
+            prof = profiled(lambda: mdl(batch, smpl_d), torch)
+        knn_cluster.CLUSTERED = False
+        phase(name, t0, launches=launches[name], overflow=overflow_c,
+              psnr_vs_frame_db=psnr,
+              max_abs_diff_vs_frame=float((img_c.float() - img.float()).abs().max()),
+              survivors=survivors(rec.calls), frame_survivors=frame_survivors,
+              frame_wall_ms_profiled=prof.pop("wall_ms_profiled"),
+              device_busy_ms=prof["device_busy_ms"],
+              device_idle_share=prof["device_idle_share"],
+              kernel_launches=prof["kernel_launches"],
+              port_kernels=prof["port_kernels"])
+        del out_c, diag_c, img_c
+
+    # the three configurations' frame times, in turns within this run (host
+    # times drift by tens of percent over a run; turns keep them comparable)
+    t0 = time.perf_counter()
+    modes = {"frame": (model, False), "cluster_frame": (model, True),
+             "shortlist_frame": (sl_model, True)}
+    turns = {k: [] for k in modes}
+    with torch.inference_mode():
+        for _ in range(2 * FRAME_ITERS):
+            for key, (mdl, clustered) in modes.items():
+                knn_cluster.CLUSTERED = clustered
+                ts = time.perf_counter()
+                mdl(batch, smpl_d)
+                torch.cuda.synchronize()
+                turns[key].append((time.perf_counter() - ts) * 1e3)
+    knn_cluster.CLUSTERED = False
+    phase("frame_turns", t0, frame_ms_median={
+        k: statistics.median(v) for k, v in turns.items()}, frame_ms=turns)
+    del sl_model, img, modes, mdl
 
     # ---- train: the production train step, 5 steps at batch 1 ------------
     t0 = time.perf_counter()
@@ -558,8 +656,204 @@ def main():
         "library_ms": cuda_ms(wa_library, 5, torch), "n": n, "k": k, "c": c,
         "n_rows": n_rows})
     del upd, flat_ids, wa_calls
+
+    # the clustered kernels: every call of cluster_frame and shortlist_frame
+    # against its plain version (same prep, same visit rule: bit-equal) and
+    # against the full-scan kernel on the same raw inputs.  The two centre
+    # on f32 means that differ in the last bit, which moves each centred
+    # coordinate by up to half an ulp (6e-8 m at 1 m) and d2 by up to about
+    # 1e-4 relative or 1e-7 m^2; ties may go to another vertex at the same
+    # distance, so the index is held to the f64 distance at the full scan's
+    def knn_vs_full(key, i, query, ref, d2, idx):
+        d_f, i_f = knn.nn_1_cuda(*knn._centre(query, ref))
+        near = (query - ref.mean(0)).norm(dim=1) < FAR_M
+        check(bool(torch.allclose(d2[near], d_f[near], rtol=1e-4, atol=1e-7)),
+              f"{key} call {i}: d2 differs from the full scan")
+        q64, v64 = query[near].double(), ref.double()
+        at = ((q64 - v64[idx[near].long()]) ** 2).sum(-1)
+        at_f = ((q64 - v64[i_f[near].long()]) ** 2).sum(-1)
+        check(bool(torch.allclose(at, at_f, rtol=1e-4, atol=1e-7)),
+              f"{key} call {i}: index is not a nearest vertex")
+        thr = fitted.prune_threshold_sq
+        flips = int(((d2 < thr) != (d_f < thr)).sum())
+        return {"full_scan_idx_equal": int((idx == i_f)[near].sum()),
+                "far_queries": int((~near).sum()), "prune_flips": flips}
+
+    clus = {"nn_1_clustered": rec_cluster["cluster_frame"]["nn_1_clustered"],
+            "nn_1_shortlist": rec_cluster["shortlist_frame"]["nn_1_shortlist"],
+            "ray_body_mask_clustered": (
+                rec_cluster["cluster_frame"]["ray_body_mask_clustered"]
+                + rec_cluster["shortlist_frame"]["ray_body_mask_clustered"])}
+    prep = {}
+    for i, (query, ref) in enumerate(clus["nn_1_clustered"]):
+        cl = knn_cluster.make_clusters(ref, knn_cluster.C_SIZE, sorted_mean=True)
+        q_c = (query - cl.ctr0).contiguous()
+        d2k, ik = knn_cluster.nn_1_clustered_cuda(q_c, cl)
+        d2p, ip, visits = knn_cluster.nn_1_clustered_plain(q_c, cl)
+        torch.cuda.synchronize()
+        err = note_err("nn_1_clustered", d2k, d2p)
+        note_err("nn_1_clustered", ik, ip)
+        check(torch.equal(ik, ip), f"nn_1_clustered call {i}: indices differ")
+        check(torch.equal(d2k, d2p), f"nn_1_clustered call {i}: d2 not "
+              f"bit-equal (max abs err {err})")
+        full = knn_vs_full("nn_1_clustered", i, query, ref, d2k,
+                           cl.order[ik.long()])
+        prep.setdefault("nn_1_clustered", (query, ref, cl, q_c, visits))
+        cases.append({"kernel": "nn_1_clustered", "call": i,
+                      "n": query.shape[0], "v": ref.shape[0], "equal": True,
+                      "pairs": int(visits.sum()), **full})
+    for i, (query, ref, _) in enumerate(clus["nn_1_shortlist"]):
+        cl = knn_cluster.make_clusters(ref, knn_cluster.SL_CSIZE,
+                                       sorted_mean=False)
+        q_c = (query - cl.ctr0).contiguous()
+        counts, ids, _, _ = knn_cluster.shortlist_tiles(q_c, cl)
+        d2k, ik = knn_cluster.nn_1_shortlist_cuda(q_c, cl, counts, ids)
+        d2p, ip, visits = knn_cluster.nn_1_shortlist_plain(q_c, cl, counts, ids)
+        torch.cuda.synchronize()
+        err = note_err("nn_1_shortlist", d2k, d2p)
+        note_err("nn_1_shortlist", ik, ip)
+        check(torch.equal(ik, ip), f"nn_1_shortlist call {i}: indices differ")
+        check(torch.equal(d2k, d2p), f"nn_1_shortlist call {i}: d2 not "
+              f"bit-equal (max abs err {err})")
+        full = knn_vs_full("nn_1_shortlist", i, query, ref, d2k,
+                           cl.order[ik.long()])
+        prep.setdefault("nn_1_shortlist", (query, ref, cl, q_c, visits,
+                                           counts, ids))
+        cases.append({"kernel": "nn_1_shortlist", "call": i,
+                      "n": query.shape[0], "v": ref.shape[0], "equal": True,
+                      "pairs": int(visits.sum()),
+                      "clusters_per_tile_mean": float(counts.float().mean()),
+                      **full})
+    for i, (ray_o, ray_d, verts, thr) in enumerate(
+            clus["ray_body_mask_clustered"]):
+        cl = knn_cluster.make_clusters(verts, knn_cluster.C_SIZE,
+                                       sorted_mean=True)
+        o_c = (ray_o - cl.ctr0).contiguous()
+        ray_d = ray_d.contiguous()
+        mk = knn_cluster.ray_body_mask_clustered_cuda(o_c, ray_d, cl, thr)
+        mp, visits = knn_cluster.ray_body_mask_clustered_plain(o_c, ray_d, cl,
+                                                               thr)
+        o_f, v_f = knn._centre(ray_o, verts)
+        mf = knn.ray_body_mask_cuda(o_f, ray_d, v_f, thr)
+        torch.cuda.synchronize()
+        note_err("ray_body_mask_clustered", mk, mp)
+        check(torch.equal(mk, mp), f"ray_body_mask_clustered call {i}: masks "
+              f"differ ({int((mk != mp).sum())} rays)")
+        # rays where the full scan disagrees must sit on the f32 borderline:
+        # a - b^2/|d|^2 cancels terms of ~10 m^2, good to ~1e-5 m^2
+        off = torch.nonzero(mk != mf).flatten()
+        w = verts.double()[None] - ray_o.double()[off][:, None]
+        dd = ray_d.double()[off]
+        b = (w * dd[:, None]).sum(-1)
+        line = ((w * w).sum(-1) - b * b / (dd * dd).sum(-1)[:, None]).amin(1)
+        check(bool(((line - thr).abs() <= 1e-5).all()),
+              f"ray_body_mask_clustered call {i}: {off.numel()} rays differ "
+              f"from the full scan off the borderline")
+        prep.setdefault("ray_body_mask_clustered",
+                        (ray_o, ray_d, verts, thr, cl, o_c, visits))
+        cases.append({"kernel": "ray_body_mask_clustered", "call": i,
+                      "n": ray_o.shape[0], "equal": True,
+                      "full_scan_borderline_flips": off.numel(),
+                      "pairs": int(visits.sum()), "hits": int(mk.sum())})
+
+    def cdist_min(q, v):
+        def run():
+            for s in range(0, q.shape[0], chunk):
+                torch.cdist(q[s:s + chunk], v,
+                            compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
+        return run
+
+    # B5 and B6 timed at the point-budget KNN (the first call of each
+    # frame), B7 at the ray prune; bounds count the (query, vertex) pairs
+    # that each query's own bound test admitted (B5, B7) or that its tile
+    # visited (B6), as the plain versions report them.  full_scan_ms: the
+    # full-scan kernel on the same inputs (for B7 also with the default
+    # path's AABB tile skip); *wrapper_ms: the public function, prep and
+    # index remap included, against the full scan's
+    query, ref, cl, q_c, visits = prep["nn_1_clustered"]
+    n, nv, nc = query.shape[0], ref.shape[0], cl.cent.shape[0]
+    chunk = max(1, int(4e9 // (nv * 4)))
+    q_f, v_f = knn._centre(query, ref)
+    pairs = int(visits.sum())
+    b_ms, b_by = bound(pairs * NN1_OPS_PER_PAIR, n * 20 + nv * 12 + nc * 16)
+    rows.append({
+        "name": "nn_1_clustered", "route": "cuda",
+        "source": "sherf_tpu_torch/csrc/knn_cluster.cu",
+        "replaces": "sherf_tpu/kernels/knn_pallas.py:207",
+        "launches": launches["cluster_frame"]["nn_1_clustered"],
+        "launches_by_path": by_path("nn_1_clustered"),
+        "max_abs_err": errs["nn_1_clustered"],
+        "ms": cuda_ms(lambda: knn_cluster.nn_1_clustered_cuda(q_c, cl), 5, torch),
+        "plain_ms": cuda_ms(lambda: knn_cluster.nn_1_clustered_plain(q_c, cl),
+                            3, torch),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(cdist_min(q_c, cl.vs), 3, torch),
+        "full_scan_ms": cuda_ms(lambda: knn.nn_1_cuda(q_f, v_f), 5, torch),
+        "wrapper_ms": cuda_ms(lambda: knn_cluster.nn_1_clustered(query, ref),
+                              5, torch),
+        "full_scan_wrapper_ms": cuda_ms(lambda: knn.nn_1(query, ref), 5, torch),
+        "n": n, "v": nv, "clusters": nc, "pairs": pairs,
+        "pairs_share": pairs / (n * nv)})
+
+    query, ref, cl, q_c, visits, counts, ids = prep["nn_1_shortlist"]
+    n, nv, nc = query.shape[0], ref.shape[0], cl.cent.shape[0]
+    q_f, v_f = knn._centre(query, ref)
+    pairs = int(visits.sum())
+    b_ms, b_by = bound(pairs * NN1_OPS_PER_PAIR,
+                       n * 20 + nv * 12 + counts.numel() * 4 + ids.numel() * 4)
+    rows.append({
+        "name": "nn_1_shortlist", "route": "cuda",
+        "source": "sherf_tpu_torch/csrc/knn_cluster.cu",
+        "replaces": "sherf_tpu/kernels/knn_pallas.py:318",
+        "launches": launches["shortlist_frame"]["nn_1_shortlist"],
+        "launches_by_path": by_path("nn_1_shortlist"),
+        "max_abs_err": errs["nn_1_shortlist"],
+        "ms": cuda_ms(lambda: knn_cluster.nn_1_shortlist_cuda(
+            q_c, cl, counts, ids), 5, torch),
+        "plain_ms": cuda_ms(lambda: knn_cluster.nn_1_shortlist_plain(
+            q_c, cl, counts, ids), 3, torch),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(cdist_min(q_c, cl.vs), 3, torch),
+        "full_scan_ms": cuda_ms(lambda: knn.nn_1_cuda(q_f, v_f), 5, torch),
+        "wrapper_ms": cuda_ms(lambda: knn_cluster.nn_1_shortlist(query, ref),
+                              5, torch),
+        "full_scan_wrapper_ms": cuda_ms(lambda: knn.nn_1(query, ref), 5, torch),
+        "n": n, "v": nv, "clusters": nc, "tiles": counts.numel(),
+        "clusters_per_tile_mean": float(counts.float().mean()),
+        "pairs": pairs, "pairs_share": pairs / (n * nv)})
+
+    ray_o, ray_d, verts, thr, cl, o_c, visits = prep["ray_body_mask_clustered"]
+    n, nv, nc = ray_o.shape[0], verts.shape[0], cl.cent.shape[0]
+    o_f, v_f = knn._centre(ray_o, verts)
+    act = recorded["ray_body_mask"][0][4]       # the default frame's AABB mask
+    pairs = int(visits.sum())
+    b_ms, b_by = bound(pairs * RBM_OPS_PER_PAIR, n * 25 + nv * 12 + nc * 16)
+    rows.append({
+        "name": "ray_body_mask_clustered", "route": "cuda",
+        "source": "sherf_tpu_torch/csrc/knn_cluster.cu",
+        "replaces": "sherf_tpu/kernels/knn_pallas.py:501",
+        "launches": launches["cluster_frame"]["ray_body_mask_clustered"],
+        "launches_by_path": by_path("ray_body_mask_clustered"),
+        "max_abs_err": errs["ray_body_mask_clustered"],
+        "ms": cuda_ms(lambda: knn_cluster.ray_body_mask_clustered_cuda(
+            o_c, ray_d, cl, thr), 5, torch),
+        "plain_ms": cuda_ms(lambda: knn_cluster.ray_body_mask_clustered_plain(
+            o_c, ray_d, cl, thr), 3, torch),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "full_scan_ms": cuda_ms(lambda: knn.ray_body_mask_cuda(
+            o_f, ray_d, v_f, thr), 5, torch),
+        "full_scan_active_ms": cuda_ms(lambda: knn.ray_body_mask_cuda(
+            o_f, ray_d, v_f, thr, act), 5, torch),
+        "wrapper_ms": cuda_ms(lambda: knn_cluster.ray_body_mask_clustered(
+            ray_o, ray_d, verts, thr), 5, torch),
+        "full_scan_wrapper_ms": cuda_ms(lambda: knn.ray_body_mask(
+            ray_o, ray_d, verts, thr, active=act), 5, torch),
+        "n": n, "v": nv, "clusters": nc, "pairs": pairs,
+        "pairs_share": pairs / (n * nv)})
+    del prep, clus
     rec_frame.calls.clear()
     rec_train.calls.clear()
+    rec_cluster.clear()
     phase("kernels", t0, cases=cases)
 
     # ---- a 2-step training_loop: stats.jsonl and a checkpoint -------------

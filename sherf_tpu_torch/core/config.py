@@ -82,15 +82,15 @@ class RenderConfig:
     # on AND point_capacity_frac < 1 (budgeted mode); the parity-mode
     # importance path stays full-compute dense.
     importance_capacity_frac: Optional[float] = None
-    # Per-tile cluster-shortlist toggle for the exact-KNN kernels
-    # (budgeted mode, TPU backends only): nonzero routes compacted-query
-    # KNNs through the dynamic-count Morton-cluster kernel
-    # (knn_pallas.nn_1_shortlist_pallas).  DEFAULT 0 (full scan): the
-    # r4 A/B measured the cluster-visiting kernel at 258 ms/frame vs 120
-    # for the straight-line full scan — like the branch-and-bound variant
-    # before it, per-visit overhead (dynamic slices + scalar reads +
-    # loop control) dwarfs the column savings at V=6890.  The kernel
-    # stays exact-pinned by tests for larger vertex sets.
+    # Per-tile cluster-shortlist toggle for the exact KNNs of budgeted
+    # mode: nonzero routes the two compacted-query KNNs (posed and
+    # canonical vertices) through the dynamic-count Morton-cluster kernel
+    # (kernels/knn_cluster.nn_1_shortlist; its CUDA kernel for a CUDA
+    # tensor, its exact plain version for a CPU tensor) and records
+    # knn_shortlist_overflow (always 0: the visit count is dynamic, so the
+    # value itself is ignored).  DEFAULT 0 (full scan), as in the JAX
+    # package, which measured the Pallas form slower than the full scan on
+    # its TPU; PERF.md records the H100's answer.
     knn_shortlist: int = 0
 
     def to_json(self) -> str:

@@ -4,13 +4,19 @@ The renderer compacts samples into static budgets; whatever exceeds a
 budget is dropped.  Where the JAX package sows each overflow count
 (survivors - capacity, clamped at 0) into flax's 'diag' collection
 (``sherf_tpu/nerf/renderer.py:154-165``), the port records it in a plain
-dict that the renderer returns beside its outputs:
+dict that the renderer returns beside its outputs, one entry per leaf of
+that collection:
 
-  renderer: ray_overflow / point_overflow / exact_overflow / step_overflow
-  encoder_3d downsamples: site_overflow
+  renderer: ray_overflow / point_overflow / exact_overflow / step_overflow /
+            knn_shortlist_overflow
+  encoder_3d downsamples: down0.site_overflow / down1.site_overflow /
+            down2.site_overflow
 
-A nonzero count means real body samples were dropped — recalibrate with
-``core.calibrate`` at a larger margin.
+A key is ``[scope.]name``: each module that sows a name owns its own leaf,
+as each flax module does.  ``overflow_total`` sums the leaves and
+``overflow_report`` keeps the max per name, as ``sherf_tpu/core/diag.py``
+does.  A nonzero count means real body samples were dropped — recalibrate
+with ``core.calibrate`` at a larger margin.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 
 
 class Diag(dict):
-    """name -> int32 scalar tensor; ``record`` keeps the max, like the
+    """leaf key -> int32 scalar tensor; ``record`` keeps the max, like the
     reference's ``reduce_fn=jnp.maximum``."""
 
     def record(self, name: str, excess: torch.Tensor) -> None:
@@ -32,12 +38,16 @@ class Diag(dict):
 
 
 def overflow_report(diag: Dict[str, torch.Tensor]) -> Dict[str, int]:
-    """{name: host int}."""
-    return {k: int(v) for k, v in diag.items()}
+    """{leaf name: max count over the modules that record it} (host ints)."""
+    out: Dict[str, int] = {}
+    for key, v in diag.items():
+        name = key.rsplit(".", 1)[-1]
+        out[name] = max(out.get(name, 0), int(v))
+    return out
 
 
 def overflow_total(diag: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Total overflow as an f32 scalar tensor (for metrics dicts; no host
+    """Sum of every leaf as an f32 scalar tensor (for metrics dicts; no host
     sync).  Zero for an empty dict."""
     if not diag:
         return torch.zeros((), dtype=torch.float32)

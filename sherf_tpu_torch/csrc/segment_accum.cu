@@ -27,11 +27,13 @@
 //     to bf16 in registers (__float2bfloat16_rn), and every (kept tap,
 //     channel) adds wq * gq to out[id, c] with an f32 atomicAdd.  wq and gq
 //     are bf16 values, so their product is exact in f32.
-// A tap dropped by deduplication adds exactly zero for a finite grad row,
-// so it is skipped (for a non-finite grad row the first occurrence already
-// makes the row non-finite).  The atomics make the order of the f32 sums
-// change from run to run; results agree with the plain version within
-// f32 reassociation error, not bit for bit.
+// A tap dropped by deduplication adds its zero weight times the grad
+// value, as the reference does: exactly zero for a finite value, so it is
+// skipped then; NaN (0 * inf, 0 * NaN) for a non-finite one, so for those
+// channels it is added.  The atomics make the order of the f32 sums change
+// from run to run; results agree with the plain version within f32
+// reassociation error, not bit for bit, and their NaN and inf entries
+// sit in the same places.
 //
 // What bounds it on an H100: bytes.  The function must read ids and w
 // (N*K*8 bytes) and the f32 grad rows (N*C*4) and write the table
@@ -89,12 +91,17 @@ wa_kernel(const int* __restrict__ ids, const float* __restrict__ w,
     tap_w[k] = __shfl_sync(0xffffffffu, wq, k);
   }
   const unsigned kept = __ballot_sync(0xffffffffu, keep);
+  // in-range taps that deduplication dropped (their weight wq is 0)
+  const unsigned dropped = __ballot_sync(
+      0xffffffffu, lane < k_taps && !first
+      && static_cast<unsigned>(my_id) < static_cast<unsigned>(n_rows));
   const float* grow = g + row * c_dim;
   for (int c = lane; c < c_dim; c += 32) {
     const float gq = __bfloat162float(__float2bfloat16_rn(grow[c]));
+    const unsigned taps = isfinite(gq) ? kept : (kept | dropped);
 #pragma unroll
     for (int k = 0; k < kMaxK; ++k) {
-      if (kept >> k & 1u) {
+      if (taps >> k & 1u) {
         atomicAdd(out + static_cast<long long>(tap_id[k]) * c_dim + c,
                   tap_w[k] * gq);
       }

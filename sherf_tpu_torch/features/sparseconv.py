@@ -249,9 +249,10 @@ class SparseStage(nn.Module):
 class SparseDown(nn.Module):
     """SparseConv3d(stride 2) + BN + ReLU."""
 
-    def __init__(self, cin: int, out_channels: int, cap: int):
+    def __init__(self, cin: int, out_channels: int, cap: int, name: str):
         super().__init__()
         self.cap = cap
+        self.overflow_key = f"{name}.site_overflow"
         self.conv = nn.Parameter(torch.randn(3, 3, 3, cin, out_channels)
                                  / np.sqrt(27 * cin))
         self.bn = MaskedBatchNorm(out_channels)
@@ -259,7 +260,7 @@ class SparseDown(nn.Module):
     def forward(self, feats, coords, grid, shape, valid, diag: Diag):
         new_coords, new_valid, new_shape, overflow = downsample_sites(
             coords, valid, shape, self.cap)
-        diag.record("site_overflow", overflow)
+        diag.record(self.overflow_key, overflow)
         out = stride_conv3d(feats, grid, shape, new_coords, self.conv)
         out = F.relu(self.bn(out)) * new_valid[:, None].to(out.dtype)
         new_grid = build_index_grid(new_coords, new_valid, new_shape)
@@ -285,13 +286,13 @@ class SparseConvNet(nn.Module):
         super().__init__()
         self.num_layers, self.out_sh, self.dtype = num_layers, tuple(out_sh), dtype
         self.conv0 = SparseStage(in_channels, 32, 2)
-        self.down0 = SparseDown(32, 32, caps[0])
+        self.down0 = SparseDown(32, 32, caps[0], "down0")
         if num_layers > 1:
             self.conv1 = SparseStage(32, 32, 2)
-            self.down1 = SparseDown(32, 64, caps[1])
+            self.down1 = SparseDown(32, 64, caps[1], "down1")
         if num_layers > 2:
             self.conv2 = SparseStage(64, 64, 3)
-            self.down2 = SparseDown(64, 96, caps[2])
+            self.down2 = SparseDown(64, 96, caps[2], "down2")
         if num_layers > 3:
             self.conv3 = SparseStage(96, 96, 3)
 

@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"nn_1": 0, "ray_body_mask": 0, "compact_mask": 0,
-            "weighted_accumulate": 0}
+            "weighted_accumulate": 0, "nn_1_clustered": 0,
+            "nn_1_shortlist": 0, "ray_body_mask_clustered": 0}
 # seconds the last nvcc build took in this process (None: loaded from cache
 # or not built yet)
 BUILD_INFO = {"seconds": None}
@@ -53,6 +54,11 @@ _SIGNATURES = {
     "sherf_knn_max_vertices": (_I, []),
     "sherf_weighted_accumulate": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "sherf_wa_max_taps": (_I, []),
+    "sherf_nn1_clustered": (_I, [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P]),
+    "sherf_nn1_shortlist": (_I, [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P,
+                                 _P]),
+    "sherf_ray_body_mask_clustered": (_I, [_P, _P, _I, _P, _I, _P, _P, _I, _I,
+                                           ctypes.c_float, _P, _P]),
     "sherf_error_string": (ctypes.c_char_p, [_I]),
 }
 

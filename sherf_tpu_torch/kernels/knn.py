@@ -12,6 +12,14 @@ Each wrapper takes the CUDA kernel (``csrc/knn.cu``) for a CUDA tensor and
 its plain torch version (``*_plain``, same arithmetic, bit-equal) for a CPU
 tensor.  The public wrappers run outside autograd: their outputs (indices,
 masks, and distances that only feed comparisons) carry no gradient.
+
+``nn_1`` and ``nn_1_diag`` are also the dispatch points of the clustered
+kernels in ``knn_cluster.py``, as ``sherf_tpu/kernels/knn.py:50-98`` is:
+with ``knn_cluster.CLUSTERED`` set, ``nn_1`` of at least 8 * C_SIZE vertices
+takes ``nn_1_clustered``; ``nn_1_diag`` with ``s_cap > 0`` takes
+``nn_1_shortlist`` at that size.  (The JAX package takes them on a TPU
+only; here a CUDA tensor takes their kernels and a CPU tensor their exact
+plain versions.)
 """
 
 from __future__ import annotations
@@ -89,8 +97,12 @@ def nn_1_cuda(q_c: torch.Tensor, v_c: torch.Tensor):
 @torch.no_grad()
 def nn_1(query: torch.Tensor, ref: torch.Tensor):
     """query (N, 3), ref (V, 3) float32 -> (dist_sq (N,) f32, idx (N,) int32)
-    of the nearest reference point; ties go to the lowest index."""
+    of the nearest reference point; ties go to the lowest index (to the
+    first in Morton order when the clustered kernel is switched on)."""
     _check_points(query, ref)
+    from sherf_tpu_torch.kernels import knn_cluster as kc  # it imports knn
+    if kc.CLUSTERED and ref.shape[0] >= 8 * kc.C_SIZE:
+        return kc.nn_1_clustered(query, ref)
     q_c, v_c = _centre(query, ref)
     if query.is_cuda:
         return nn_1_cuda(q_c, v_c)
@@ -102,6 +114,27 @@ def nn_1_tables(query: torch.Tensor, ref: torch.Tensor, tables: torch.Tensor):
     (dist_sq (N,), idx (N,), tables[idx] (N, C))."""
     d2, idx = nn_1(query, ref)
     return d2, idx, tables[idx.long()]
+
+
+def nn_1_diag(query: torch.Tensor, ref: torch.Tensor, s_cap: int = 0):
+    """K=1 NN with a shortlist-overflow slot: (dist_sq, idx, overflow ()
+    int32).  ``s_cap > 0`` with at least 8 * C_SIZE vertices takes the
+    cluster-shortlist kernel, whose dynamic visit count never overflows;
+    otherwise :func:`nn_1`.  The overflow is 0 either way; the renderer
+    records it as ``knn_shortlist_overflow``, as the JAX package does."""
+    from sherf_tpu_torch.kernels import knn_cluster as kc  # it imports knn
+    if s_cap > 0 and ref.shape[0] >= 8 * kc.C_SIZE:
+        return kc.nn_1_shortlist(query, ref, s_cap)
+    d2, idx = nn_1(query, ref)
+    return d2, idx, torch.zeros((), dtype=torch.int32, device=query.device)
+
+
+def nn_1_tables_diag(query: torch.Tensor, ref: torch.Tensor,
+                     tables: torch.Tensor, s_cap: int = 0):
+    """:func:`nn_1_diag` fused with the payload lookup: (dist_sq, idx,
+    tables[idx], overflow)."""
+    d2, idx, ov = nn_1_diag(query, ref, s_cap)
+    return d2, idx, tables[idx.long()], ov
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ Budgeted mode (``point_capacity_frac < 1``):
   the exact survivors -> inverse-LBS warp -> feature banks (``nn_1`` vs the
   canonical vertices for the c2source warp) -> transformer + decoder ->
   segmented march -> scatter the pixels back.
+With ``knn_cluster.CLUSTERED`` set, the KNNs take ``nn_1_clustered`` and the
+ray prune ``ray_body_mask_clustered``; ``render.knn_shortlist > 0`` sends
+both budgeted-mode KNNs to ``nn_1_shortlist`` and records
+``knn_shortlist_overflow``.
 Parity mode computes every sample and masks the output.
 
 Training (``train=True``) adds density noise ``sigma + N(0, 1) *
@@ -41,7 +45,9 @@ from sherf_tpu_torch.features.transformer import PlaneTransformer
 from sherf_tpu_torch.geometry.rays import project_points
 from sherf_tpu_torch.kernels.compaction import compact_mask
 from sherf_tpu_torch.kernels.grid_sample import grid_sample_2d, triplane_sample_2d
-from sherf_tpu_torch.kernels.knn import nn_1, nn_1_tables, ray_body_mask
+from sherf_tpu_torch.kernels import knn_cluster
+from sherf_tpu_torch.kernels.knn import (
+    nn_1_diag, nn_1_tables, nn_1_tables_diag, ray_body_mask)
 from sherf_tpu_torch.kernels.occupancy import strided_occupancy
 from sherf_tpu_torch.nerf.decoders import NeRFDecoder
 from sherf_tpu_torch.nerf.march import ray_march, ray_march_segmented
@@ -211,7 +217,11 @@ class SHERFRenderer(nn.Module):
             pts_s = o_s + depth_s[:, None] * dirs_s
             q_s = _rot3(pts_s - ct.Th, ct.R)
             qd_s = _rot3(dirs_s, ct.R)
-            d2_s, vid_s = nn_1(q_s, tar_smpl)
+            # knn_shortlist > 0 sends the compacted queries to the
+            # cluster-shortlist kernel (default 0: the full scan)
+            d2_s, vid_s, sl_over = nn_1_diag(q_s, tar_smpl, rc.knn_shortlist)
+            if rc.knn_shortlist > 0:
+                diag.record("knn_shortlist_overflow", sl_over)
             exact_s = valid & (d2_s < rc.prune_threshold_sq)
             if rc.exact_capacity_frac < 1.0:
                 cap2 = min(_round_up(max(int(N_full * D * rc.exact_capacity_frac),
@@ -273,8 +283,15 @@ class SHERFRenderer(nn.Module):
         N = ray_o.shape[0]
         ray_mask = ray_mask.reshape(-1).to(torch.bool)
         thr_ray = (float(np.sqrt(rc.prune_threshold_sq)) + 1e-3) ** 2
-        ray_mask = ray_mask & ray_body_mask(ray_o, ray_d, vertices, thr_ray,
-                                            active=ray_mask)
+        if (knn_cluster.CLUSTERED
+                and vertices.shape[0] >= 8 * knn_cluster.C_SIZE):
+            body = knn_cluster.ray_body_mask_clustered(ray_o, ray_d, vertices,
+                                                       thr_ray)
+        else:
+            # the AABB mask lets all-miss ray tiles skip the scan
+            body = ray_body_mask(ray_o, ray_d, vertices, thr_ray,
+                                 active=ray_mask)
+        ray_mask = ray_mask & body
         depth_lo, depth_hi = near.min(), far.max()
         rcap = _round_up(max(int(N * rc.ray_capacity_frac), 128), 128)
         ridx, rvalid = compact_mask(ray_mask, rcap)
@@ -325,7 +342,13 @@ class SHERFRenderer(nn.Module):
                                             - 1.0))
         if cfg.use_2d_feature:
             tab_c2s = c2source_tables(smpl, ctx_obs, ctx_big)
-            _, _, pay_c2s = nn_1_tables(can, t_vertices, tab_c2s)
+            # budgeted-mode queries arrive compacted: the shortlist applies
+            slc = (cfg.render.knn_shortlist
+                   if cfg.render.point_capacity_frac < 1.0 else 0)
+            _, _, pay_c2s, sl_over = nn_1_tables_diag(can, t_vertices,
+                                                      tab_c2s, slc)
+            if slc > 0:
+                diag.record("knn_shortlist_overflow", sl_over)
             _, world_src, _ = deform_c2source_from_tables(ctx_obs, ctx_big,
                                                           pay_c2s, can)
             uv, _ = project_points(world_src, obs_K, obs_R, obs_T)

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from sherf_tpu_torch.kernels import compaction, knn, segment_accum
+from sherf_tpu_torch.kernels import compaction, knn, knn_cluster, segment_accum
+from sherf_tpu_torch.smpl import synthetic_smpl
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +164,153 @@ def test_weighted_accumulate_kernel_edges(dev):
             torch.zeros((4, 8), dtype=torch.int64, device=dev),
             torch.zeros((4, 8), device=dev),
             torch.zeros((4, 2), device=dev), 3)
+
+
+def test_weighted_accumulate_kernel_non_finite_rows(dev):
+    """Grad rows with +inf, -inf and NaN entries, rows with duplicate ids
+    (whose dropped taps add 0 * g: NaN on a non-finite g) and ids out of
+    range: the kernel's NaN and inf entries sit exactly where the plain
+    version's do; the finite ones are within the reassociation bound."""
+    rng = np.random.RandomState(9)
+    n, k, c, n_rows = 4000, 8, 40, 300
+    ids, w, g = _wa_inputs(rng, n, k, c, n_rows, False)
+    ids[rng.rand(n) < 0.1, 3] = n_rows + 5           # out of range
+    ids[rng.rand(n) < 0.1, 6] = -1
+    bad = rng.choice(n, 30, replace=False)
+    g[bad[:10], rng.randint(0, c, 10)] = np.inf
+    g[bad[10:20], rng.randint(0, c, 10)] = -np.inf
+    g[bad[20:], rng.randint(0, c, 10)] = np.nan
+    ids[bad, 4] = ids[bad, 0]                        # duplicates on those rows
+    t = lambda a: torch.from_numpy(a).to(dev)
+    got = segment_accum.weighted_accumulate_cuda(t(ids), t(w), t(g), n_rows)
+    ref = segment_accum.weighted_accumulate_plain(t(ids), t(w), t(g), n_rows)
+    mag = segment_accum.weighted_accumulate_plain(t(ids), t(np.abs(w)),
+                                                  t(np.abs(g)), n_rows)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(ref))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    fin = torch.isfinite(ref)
+    assert bool(((got - ref).abs()[fin] <= 1e-5 * mag[fin] + 1e-30).all())
+
+
+def _smpl_body(seed):
+    """SMPL-like vertices: the synthetic model posed with random joints."""
+    from sherf_tpu_torch.smpl import smpl_forward
+    smpl = synthetic_smpl(0, device="cpu")
+    rng = np.random.RandomState(seed)
+    poses = torch.from_numpy((rng.randn(72) * 0.2).astype(np.float32))
+    shapes = torch.from_numpy((rng.randn(10) * 0.5).astype(np.float32))
+    with torch.no_grad():
+        return smpl_forward(smpl, poses, shapes)[0].numpy()
+
+
+def _cluster_body(kind, rng):
+    if kind == "smpl":
+        return _smpl_body(int(rng.randint(1000)))
+    return _verts(rng, 5000 + 37)         # V not a multiple of 128 or 256
+
+
+def _cluster_queries(kind, verts, rng, n):
+    if kind == "far":                      # every query far from the body
+        return rng.uniform(5.0, 9.0, (n, 3)).astype(np.float32)
+    q = verts[rng.randint(0, len(verts), n)] + rng.randn(n, 3).astype(np.float32) * 0.05
+    q[: n // 8] = rng.uniform(-1.5, 1.5, (n // 8, 3)) + verts.mean(0)
+    return q.astype(np.float32)
+
+
+@pytest.mark.parametrize("body", ["random", "smpl"])
+@pytest.mark.parametrize("n,qkind", [(0, "near"), (1, "near"), (1000, "near"),
+                                     (70_001, "near"), (3000, "far")])
+def test_clustered_nn_kernels_bit_equal_plain(dev, body, n, qkind):
+    """nn_1_clustered and nn_1_shortlist: kernel == plain version (idx
+    equal, d2 bit-equal) on the wrapper's own prep, and both realise the
+    full scan's minimum."""
+    rng = np.random.RandomState(n + len(body))
+    verts = _cluster_body(body, rng)
+    q = _cluster_queries(qkind, verts, rng, n)
+    qt, vt = torch.from_numpy(q).to(dev), torch.from_numpy(verts).to(dev)
+    cl = knn_cluster.make_clusters(vt, knn_cluster.C_SIZE, sorted_mean=True)
+    q_c = (qt - cl.ctr0).contiguous()
+    before = dict(knn._cuda.LAUNCHES)
+    d2k, ik = knn_cluster.nn_1_clustered_cuda(q_c, cl)
+    d2p, ip, _ = knn_cluster.nn_1_clustered_plain(q_c, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip) and torch.equal(d2k, d2p)
+    assert knn._cuda.LAUNCHES["nn_1_clustered"] == before["nn_1_clustered"] + (n > 0)
+
+    sl = knn_cluster.make_clusters(vt, knn_cluster.SL_CSIZE, sorted_mean=False)
+    q_s = (qt - sl.ctr0).contiguous()
+    counts, ids, _, _ = knn_cluster.shortlist_tiles(q_s, sl)
+    d2k, ik = knn_cluster.nn_1_shortlist_cuda(q_s, sl, counts, ids)
+    d2p, ip, _ = knn_cluster.nn_1_shortlist_plain(q_s, sl, counts, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip) and torch.equal(d2k, d2p)
+    # the full scan's minimum distance, through the public wrappers
+    d_full, _ = knn.nn_1(qt, vt)
+    for wrap in (knn_cluster.nn_1_clustered,
+                 lambda a, b: knn_cluster.nn_1_shortlist(a, b)[:2]):
+        d2, idx = wrap(qt, vt)
+        assert idx.dtype == torch.int32 and d2.shape == (n,)
+        # centring differs from the full scan's in the last bit
+        assert torch.allclose(d2, d_full, rtol=1e-4, atol=1e-10)
+        d_at = ((qt.double() - vt.double()[idx.long()]) ** 2).sum(-1)
+        d64 = torch.cdist(qt.double(), vt.double()).pow(2).amin(1) if n else d_at
+        assert torch.allclose(d_at, d64, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("body", ["random", "smpl"])
+@pytest.mark.parametrize("n,kind", [(0, "hit"), (1, "hit"), (70_001, "hit"),
+                                    (4097, "miss")])
+def test_ray_body_mask_clustered_kernel_equals_plain(dev, body, n, kind):
+    rng = np.random.RandomState(n + 7)
+    verts = _cluster_body(body, rng)
+    o = np.tile(np.asarray([[0.1, 0.2, -1.0]], np.float32), (n, 1))
+    tgt = verts[rng.randint(0, len(verts), n)] + rng.randn(n, 3).astype(np.float32) * 0.2
+    if kind == "miss":                     # every line passes far from the body
+        tgt = o + np.asarray([[5.0, 0.0, 0.3]], np.float32) + rng.randn(n, 3) * 0.1
+    d = (tgt - o).astype(np.float32)
+    ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    vt = torch.from_numpy(verts).to(dev)
+    cl = knn_cluster.make_clusters(vt, knn_cluster.C_SIZE, sorted_mean=True)
+    o_c = (ot - cl.ctr0).contiguous()
+    thr = (0.05 + 1e-3) ** 2
+    mk = knn_cluster.ray_body_mask_clustered_cuda(o_c, dt, cl, thr)
+    mp, _ = knn_cluster.ray_body_mask_clustered_plain(o_c, dt, cl, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(mk, mp)
+    full = knn.ray_body_mask(ot, dt, vt, thr)
+    # off the f32 borderline the full scan agrees (centring differs)
+    assert int((mk != full).sum()) <= max(1, n // 10000)
+    if kind == "miss":
+        assert not bool(mk.any())
+    elif n > 1:
+        assert 0 < int(mk.sum()) < n
+
+
+def test_clustered_wrappers_count_and_reject(dev):
+    rng = np.random.RandomState(2)
+    verts = torch.from_numpy(_verts(rng)).to(dev)
+    q = verts[:100] + 0.01
+    for key, call in (
+            ("nn_1_clustered", lambda: knn_cluster.nn_1_clustered(q, verts)),
+            ("nn_1_shortlist", lambda: knn_cluster.nn_1_shortlist(q, verts)),
+            ("ray_body_mask_clustered", lambda: knn_cluster.ray_body_mask_clustered(
+                q, q - verts[:100].mean(0), verts, 0.05 ** 2))):
+        before = knn._cuda.LAUNCHES[key]
+        call()
+        assert knn._cuda.LAUNCHES[key] == before + 1
+    cl = knn_cluster.make_clusters(verts, knn_cluster.C_SIZE, sorted_mean=True)
+    cpu_q = (q - cl.ctr0).cpu()
+    with pytest.raises(ValueError):        # a CPU tensor never falls back
+        knn_cluster.nn_1_clustered_cuda(cpu_q, cl)
+    with pytest.raises(ValueError):
+        knn_cluster.ray_body_mask_clustered_cuda(cpu_q, cpu_q, cl, 0.01)
+    sl = knn_cluster.make_clusters(verts, knn_cluster.SL_CSIZE, sorted_mean=False)
+    counts, ids, _, _ = knn_cluster.shortlist_tiles((q - sl.ctr0).contiguous(), sl)
+    with pytest.raises(ValueError):
+        knn_cluster.nn_1_shortlist_cuda(cpu_q, sl, counts, ids)
+    with pytest.raises(TypeError):
+        knn_cluster.nn_1_shortlist_cuda((q - sl.ctr0).contiguous(), sl,
+                                        counts.long(), ids)

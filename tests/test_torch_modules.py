@@ -25,7 +25,7 @@ from sherf_tpu.nerf import march as j_march
 from sherf_tpu.nerf import warp as j_warp
 from sherf_tpu import smpl as j_smpl
 from sherf_tpu_torch.compat.flax_bridge import from_flax
-from sherf_tpu_torch.core.diag import Diag
+from sherf_tpu_torch.core.diag import Diag, overflow_report
 from sherf_tpu_torch.core.types import SMPLPose
 from sherf_tpu_torch.features import encoding as t_enc
 from sherf_tpu_torch.features import resnet as t_resnet
@@ -402,7 +402,7 @@ def test_sparse_conv_net_matches():
     np.testing.assert_allclose(yt, _np(yj), rtol=1e-4, atol=1e-4)
     assert np.abs(_np(yj)).max() > 0
     j_over = max(int(x) for x in jax.tree_util.tree_leaves(jax.device_get(mv)))
-    assert int(diag["site_overflow"]) == j_over
+    assert overflow_report(diag)["site_overflow"] == j_over
 
 
 def test_sparse_conv_primitives_match():
