@@ -135,6 +135,24 @@ def cuda_ms(fn, iters, torch):
     return statistics.median(times)
 
 
+def coop_queries(q_c, tile, torch):
+    """Queries of an nn_1 call that the kernel scans cooperatively: those
+    of every tile of ``tile`` queries whose entries are bit-identical (a
+    partial last tile padded with copies of the last query)."""
+    n = q_c.shape[0]
+    if n == 0:
+        return 0
+    bits = q_c.contiguous().view(torch.int32)
+    pad = -n % tile
+    if pad:
+        bits = torch.cat([bits, bits[-1:].expand(pad, 3)])
+    t = bits.reshape(-1, tile, 3)
+    same = (t == t[:, :1]).all(dim=2).all(dim=1)
+    per_tile = torch.full_like(same, tile, dtype=torch.int64)
+    per_tile[-1] = tile - pad
+    return int((per_tile * same).sum())
+
+
 def profiled(fn, torch):
     """Run ``fn`` once under torch.profiler: wall ms, device busy ms (sum of
     kernel times), idle share, the port's kernels and the top ops."""
@@ -501,6 +519,7 @@ def main():
 
     recorded = {k: rec_frame.calls[k] + rec_train.calls[k]
                 for k in ("nn_1", "ray_body_mask", "compact_mask")}
+    nn1_tile, coop = _cuda.library().sherf_nn1_tile(), []
     # nn_1: every call of the frame and of one train step checked; the
     # frame's point-budget call timed
     for i, (q_c, v_c) in enumerate(recorded["nn_1"]):
@@ -512,8 +531,10 @@ def main():
         check(torch.equal(ik, ip), f"nn_1 call {i}: indices differ")
         check(torch.equal(d2k, d2p), f"nn_1 call {i}: d2 not bit-equal "
               f"(max abs err {err})")
+        coop.append(coop_queries(q_c, nn1_tile, torch))
         cases.append({"kernel": "nn_1", "call": i, "n": q_c.shape[0],
-                      "v": v_c.shape[0], "equal": True})
+                      "v": v_c.shape[0], "equal": True,
+                      "coop_queries": coop[-1]})
     q_c, v_c = recorded["nn_1"][0]
     n, nv = q_c.shape[0], v_c.shape[0]
     chunk = max(1, int(4e9 // (nv * 4)))  # cdist output <= 4 GB per call
@@ -525,6 +546,11 @@ def main():
     b_ms, b_by = bound(n * nv * NN1_OPS_PER_PAIR, n * 12 + nv * 12 + n * 8)
     rows.append({
         "name": "nn_1", "route": "cuda", "source": "sherf_tpu_torch/csrc/knn.cu",
+        # the kernel issues no FMA: one operation per issue slot, half the
+        # FMA-counted peak
+        "no_fma_ceiling_ms": n * nv * NN1_OPS_PER_PAIR / (PEAK_F32_FLOPS / 2)
+        * 1e3,
+        "coop_queries": coop[0], "tile": nn1_tile,
         "replaces": "sherf_tpu/kernels/knn_pallas.py:608",
         "launches": launches["frame"]["nn_1"], "launches_by_path": by_path("nn_1"),
         "max_abs_err": errs["nn_1"],
@@ -616,16 +642,36 @@ def main():
     wa_calls = rec_train.calls["weighted_accumulate"]
     check(len(wa_calls) == TRAIN_LAUNCHES["weighted_accumulate"],
           f"{len(wa_calls)} weighted_accumulate calls recorded in step 1")
+    wa_by_call = []
     for i, (ids, w, g, n_rows) in enumerate(wa_calls):
+        wa_by_call.append({
+            "n": ids.shape[0], "k": ids.shape[1], "c": g.shape[1],
+            "n_rows": n_rows,
+            # taps on the zero row (every empty or out-of-volume corner)
+            "id0_share": float((ids == 0).float().mean()),
+            "tiling": segment_accum.weighted_accumulate_tiling(
+                ids.shape[0], ids.shape[1], g.shape[1]),
+            "ms": cuda_ms(lambda: segment_accum.weighted_accumulate_cuda(
+                ids, w, g, n_rows), 5, torch)})
         got = segment_accum.weighted_accumulate_cuda(ids, w, g, n_rows)
         ref = segment_accum.weighted_accumulate_plain(ids, w, g, n_rows)
         mag = segment_accum.weighted_accumulate_plain(ids, w.abs(), g.abs(),
                                                       n_rows)
+        # how much of the bound the kernel uses, and how much a second run of
+        # the plain version (f32 index_add_, atomics) uses against the first:
+        # on the zero row, whose sums run over ~10^5 products, the plain
+        # version's own rounding spread is a large part of the bound
+        ref2 = segment_accum.weighted_accumulate_plain(ids, w, g, n_rows)
         torch.cuda.synchronize()
+        fin, bnd = torch.isfinite(ref), (1e-5 * mag).clamp(min=1e-30)
+        wa_by_call[-1]["bound_use"] = float(((got - ref).abs() / bnd)[fin].max())
+        wa_by_call[-1]["plain_spread"] = float(((ref2 - ref).abs()
+                                                / bnd)[fin].max())
         e = note_err("weighted_accumulate", got, ref)
         excess = float(((got - ref).abs() - 1e-5 * mag).max())
         check(excess <= 1e-30, f"weighted_accumulate call {i}: |cuda - plain| "
-              f"exceeds 1e-5 * plain(|w|, |g|) by {excess} (max abs err {e})")
+              f"exceeds 1e-5 * plain(|w|, |g|) by {excess} (max abs err {e}; "
+              f"{wa_by_call[-1]})")
         cases.append({"kernel": "weighted_accumulate", "call": i,
                       "n": ids.shape[0], "k": ids.shape[1], "c": g.shape[1],
                       "n_rows": n_rows, "max_abs_err": e,
@@ -654,7 +700,7 @@ def main():
             ids, w, g, n_rows), 3, torch),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(wa_library, 5, torch), "n": n, "k": k, "c": c,
-        "n_rows": n_rows})
+        "n_rows": n_rows, "calls": wa_by_call})
     del upd, flat_ids, wa_calls
 
     # the clustered kernels: every call of cluster_frame and shortlist_frame

@@ -52,8 +52,10 @@ _SIGNATURES = {
     "sherf_compact_mask": (_I, [_P, _I, _I, _P, _P, _P, _P, _P, _P]),
     "sherf_compact_tile": (_I, []),
     "sherf_knn_max_vertices": (_I, []),
+    "sherf_nn1_tile": (_I, []),
     "sherf_weighted_accumulate": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "sherf_wa_max_taps": (_I, []),
+    "sherf_wa_tiling": (_I, [_I, _I, _I, _P]),
     "sherf_nn1_clustered": (_I, [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P]),
     "sherf_nn1_shortlist": (_I, [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P,
                                  _P]),

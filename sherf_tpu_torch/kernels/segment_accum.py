@@ -15,8 +15,11 @@ their f32 weights and the first occurrence carries the sum; weights and grad
 rows then round to bf16; products and accumulation are f32; ids outside
 [0, n_rows) are dropped.
 
-CUDA tensors go to the kernel in ``csrc/segment_accum.cu`` (one warp per
-row, f32 atomics), for every table size: the JAX package picks between its
+CUDA tensors go to the kernel in ``csrc/segment_accum.cu`` (a warp per
+run of rows, a lane per channel, sums carried in registers while a tap's
+id repeats, then reduced into the table;
+:func:`weighted_accumulate_tiling` reports how a call is split), for every
+table size: the JAX package picks between its
 Pallas kernel and the scatter by table size (``n_rows <= 32768`` on a TPU,
 ``:177``), a tuning choice between two implementations of one function,
 and the port has one kernel.  CPU tensors go to
@@ -25,6 +28,8 @@ kernel's tile skip leaves out id 0; its callers discard that row).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -107,6 +112,18 @@ def weighted_accumulate_cuda(ids: torch.Tensor, w: torch.Tensor,
             out.data_ptr(), _cuda.stream_of(ids)), "weighted_accumulate")
         _cuda.LAUNCHES["weighted_accumulate"] += 1
     return out
+
+
+def weighted_accumulate_tiling(n: int, k: int, c: int) -> dict:
+    """How the CUDA kernel splits a call of ``n`` rows, ``k`` taps and ``c``
+    channels on the current device (16-byte aligned tensors): rows per
+    warp, warps, blocks, passes over the rows (96 channels each) and
+    whether it loads a row's taps as vectors (K = 8)."""
+    out = (ctypes.c_int * 5)()
+    if _cuda.library().sherf_wa_tiling(n, k, c, ctypes.addressof(out)):
+        raise RuntimeError("weighted_accumulate_tiling: no CUDA device")
+    return dict(zip(("rows_per_warp", "warps", "blocks", "passes",
+                     "vector_taps"), out))
 
 
 def weighted_accumulate(ids: torch.Tensor, w: torch.Tensor, g: torch.Tensor,

@@ -27,6 +27,19 @@ def _verts(rng, v=6890):
     return (rng.randn(v, 3) * [0.3, 0.6, 0.15] + [0.1, 0.2, 2.0]).astype(np.float32)
 
 
+def _nn_1_bit_equal(dev, q, verts):
+    """Kernel against plain on centred inputs: indices equal, d2 bit-equal
+    (no FMA contraction in the kernel); returns the indices."""
+    q_c, v_c = knn._centre(torch.from_numpy(q).to(dev),
+                           torch.from_numpy(verts).to(dev))
+    d2k, ik = knn.nn_1_cuda(q_c, v_c)
+    d2p, ip = knn.nn_1_plain(q_c, v_c)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip)
+    assert torch.equal(d2k, d2p)
+    return ik.cpu().numpy()
+
+
 @pytest.mark.parametrize("n", [1, 255, 100_003])
 def test_nn_1_kernel_bit_equals_plain(dev, n):
     rng = np.random.RandomState(n)
@@ -36,13 +49,58 @@ def test_nn_1_kernel_bit_equals_plain(dev, n):
     # sitting exactly on vertices
     verts[100] = verts[7]
     q[: min(n, 5)] = verts[7]
-    q_c, v_c = knn._centre(torch.from_numpy(q).to(dev), torch.from_numpy(verts).to(dev))
-    d2k, ik = knn.nn_1_cuda(q_c, v_c)
-    d2p, ip = knn.nn_1_plain(q_c, v_c)
-    torch.cuda.synchronize()
-    assert torch.equal(ik, ip)
-    assert torch.equal(d2k, d2p)  # bit-equal: no FMA contraction in the kernel
-    assert int(ik[0]) == 7
+    assert _nn_1_bit_equal(dev, q, verts)[0] == 7
+
+
+@pytest.mark.parametrize("start", [1000 + 13, 1024, 1024 + 32, 1024 + 77])
+@pytest.mark.parametrize("park", ["far", "body"])
+def test_nn_1_kernel_identical_tails(dev, start, park):
+    """The budget's padding: a tail of bit-identical queries, parked at
+    1e6 m or on the body, starting mid-warp, at a tile boundary (the
+    kernel's tiles hold 128 queries) and mid-tile; bit-equal to plain."""
+    rng = np.random.RandomState(start)
+    verts = _verts(rng)
+    n = start + 5000 + 3
+    q = verts[rng.randint(0, len(verts), n)] + rng.randn(n, 3).astype(np.float32) * 0.05
+    q[start:] = [1e6, 1e6, 1e6] if park == "far" else q[start]
+    # a whole tile of identical near-body queries before the tail too
+    q[256:384] = verts[11] + np.float32(0.01)
+    ik = _nn_1_bit_equal(dev, q, verts)
+    assert len(set(ik[start:].tolist())) == 1
+
+
+@pytest.mark.parametrize("n", [1, 255, 100_003])
+@pytest.mark.parametrize("v", [1, 31, 32, 33])
+def test_nn_1_kernel_few_vertices(dev, n, v):
+    """V below, at and just above one 32-vertex chunk, and a single
+    vertex (three of the four quarters empty)."""
+    rng = np.random.RandomState(n + v)
+    verts = _verts(rng, v)
+    q = verts[rng.randint(0, v, n)] + rng.randn(n, 3).astype(np.float32) * 0.05
+    _nn_1_bit_equal(dev, q, verts)
+
+
+def test_nn_1_kernel_ties_in_and_across_chunks(dev):
+    """Duplicated vertices inside one 32-vertex chunk, across chunks and
+    across the warps' quarters of V: every query ties exactly between the
+    two copies, and one on them takes the lower index, exactly as plain."""
+    rng = np.random.RandomState(4)
+    verts = _verts(rng)
+    verts[40] = verts[35]                  # one chunk (32..63)
+    verts[100] = verts[70]                 # chunks 2 and 3
+    verts[6000] = verts[9]                 # quarters 0 and 3
+    verts[5000] = verts[2000]              # quarters 1 and 2
+    n = 4096
+    q = verts[rng.randint(0, len(verts), n)] + rng.randn(n, 3).astype(np.float32) * 0.05
+    q[:128] = verts[35]                    # a whole tile (cooperative scan)
+    q[128:200] = verts[70]
+    q[200:260] = verts[9]
+    q[260:300] = verts[2000]
+    ik = _nn_1_bit_equal(dev, q, verts)
+    assert set(ik[:128].tolist()) == {35}
+    assert set(ik[128:200].tolist()) == {70}
+    assert set(ik[200:260].tolist()) == {9}
+    assert set(ik[260:300].tolist()) == {2000}
 
 
 def test_nn_1_wrapper_counts_and_rejects(dev):
@@ -164,6 +222,77 @@ def test_weighted_accumulate_kernel_edges(dev):
             torch.zeros((4, 8), dtype=torch.int64, device=dev),
             torch.zeros((4, 8), device=dev),
             torch.zeros((4, 2), device=dev), 3)
+
+
+def test_weighted_accumulate_tiling(dev):
+    """The production readout's rows split evenly over one wave of warps,
+    in one pass with vector loads of the taps; 130 channels take two
+    passes, K < 8 scalar loads."""
+    t = segment_accum.weighted_accumulate_tiling(180_224, 8, 96)
+    assert t["passes"] == 1 and t["vector_taps"] == 1
+    assert t["warps"] * t["rows_per_warp"] >= 180_224
+    assert (t["warps"] - 1) * t["rows_per_warp"] < 180_224
+    t = segment_accum.weighted_accumulate_tiling(1000, 6, 130)
+    assert t["passes"] == 2 and t["vector_taps"] == 0
+
+
+@pytest.mark.parametrize("n_rows", [1, 4097, 200_000])
+@pytest.mark.parametrize("c", [1, 33, 96, 130])
+def test_weighted_accumulate_kernel_tables(dev, n_rows, c):
+    """One site (every in-range tap on the zero row), the production
+    table, and a table of 200,000 rows (more than one shared-memory tile
+    could hold at one channel); C of 1, 33, 96 and 130 (two passes over
+    the rows); ids out of range and negative, duplicates, id 0."""
+    rng = np.random.RandomState(n_rows + c)
+    n = 60_000
+    ids, w, g = _wa_inputs(rng, n, 8, c, max(n_rows, 5), True)
+    ids = np.minimum(ids, n_rows - 1)
+    ids[rng.rand(n) < 0.05, 3] = n_rows + 2
+    ids[rng.rand(n) < 0.05, 6] = -7
+    _wa_check(dev, ids, w, g, n_rows)
+
+
+@pytest.mark.parametrize("k", [8, 3])
+def test_weighted_accumulate_kernel_one_id(dev, k):
+    """Every tap of every row on one id: the most contention one address
+    can see (after deduplication one kept tap per row)."""
+    rng = np.random.RandomState(k)
+    n, c, n_rows = 200_000, 96, 4097
+    ids = np.full((n, k), 5, np.int32)
+    w = (rng.rand(n, k) * 2 - 0.5).astype(np.float32)
+    g = rng.randn(n, c).astype(np.float32)
+    got = _wa_check(dev, ids, w, g, n_rows)
+    assert bool(got[5].abs().max() > 0)
+    assert int((got != 0).any(dim=1).sum()) == 1
+
+
+def test_weighted_accumulate_kernel_non_finite_runs(dev):
+    """The non-finite rows of the test below on a large table with C = 33
+    and coherent ids (long runs of one id in a tap slot): NaN and inf where
+    the plain version has them, also on the zero row."""
+    rng = np.random.RandomState(10)
+    n, k, c, n_rows = 20_000, 8, 33, 150_000
+    ids, w, g = _wa_inputs(rng, n, k, c, n_rows, True)
+    bad = rng.choice(n, 60, replace=False)
+    g[bad[:20], rng.randint(0, c, 20)] = np.inf
+    g[bad[20:40], rng.randint(0, c, 20)] = -np.inf
+    g[bad[40:], rng.randint(0, c, 20)] = np.nan
+    ids[bad, 4] = ids[bad, 0]
+    ids[bad[::2], 6] = 0
+    ids[bad[::2], 7] = 0                  # a dropped duplicate of id 0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    got = segment_accum.weighted_accumulate_cuda(t(ids), t(w), t(g), n_rows)
+    ref = segment_accum.weighted_accumulate_plain(t(ids), t(w), t(g), n_rows)
+    mag = segment_accum.weighted_accumulate_plain(t(ids), t(np.abs(w)),
+                                                  t(np.abs(g)), n_rows)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
+    assert bool(torch.isnan(ref[0]).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(ref))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    fin = torch.isfinite(ref)
+    assert bool(((got - ref).abs()[fin] <= 1e-5 * mag[fin] + 1e-30).all())
 
 
 def test_weighted_accumulate_kernel_non_finite_rows(dev):

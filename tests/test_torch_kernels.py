@@ -65,6 +65,29 @@ def test_nn_1_matches_pallas_kernel(n, v):
     assert _ulps(d2_t.numpy(), d2_j).max() <= 2
 
 
+def test_nn_1_matches_pallas_kernel_on_a_parked_tail():
+    """The inputs the CUDA kernel's cooperative scan takes: a tail of
+    bit-identical queries (the budgets' padding) starting mid-tile, plus
+    queries on a duplicated vertex (exact ties, lowest index).  The tail
+    sits at a dyadic point 4 m from the body, where every d2 is exact, so
+    ties among its vertices are exact on both sides too."""
+    rng = np.random.RandomState(21)
+    v = 690
+    verts = _zero_centroid_body(rng, v)
+    verts[10], verts[10 + v // 2] = verts[3], -verts[3]
+    n, start = 700, 413
+    q = verts[rng.randint(0, v, n)] + rng.randn(n, 3).astype(np.float32) * 0.03
+    q[:8] = verts[3]
+    q[start:] = [1.5, -2.25, 3.0]
+    d2_j, idx_j = kp.nn_1_pallas(jnp.asarray(q), jnp.asarray(verts),
+                                 interpret=True)
+    d2_t, idx_t = nn_1(torch.from_numpy(q), torch.from_numpy(verts))
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    assert set(idx_t[:8].tolist()) == {3}
+    assert len(set(idx_t[start:].tolist())) == 1
+    assert _ulps(d2_t.numpy(), d2_j).max() <= 2
+
+
 def test_nn_1_matches_pallas_kernel_on_a_general_body():
     rng = np.random.RandomState(5)
     verts = _body(rng, 6890)

@@ -119,6 +119,24 @@ def test_weighted_accumulate_plain_matches_jax(c):
     np.testing.assert_allclose(got[1:], pallas[1:], rtol=1e-5, atol=1e-6)
 
 
+def test_weighted_accumulate_plain_matches_pallas_on_one_id():
+    """The CUDA kernel's worst contention, held on its plain version: every
+    tap of half the rows on one id, the rest with ids past the table and
+    negative ones; against the Pallas kernel in interpret mode on rows 1..
+    (same shapes as the test above, so the same compiled kernel)."""
+    n, k, c, n_rows = 5000, 8, 16, 3000
+    ids, w, g = _accum_inputs(n, k, c, n_rows, seed=31)
+    ids[: n // 2] = 7
+    rng = np.random.RandomState(32)
+    ids[rng.rand(n) < 0.1, 4] = n_rows + 3
+    ids[rng.rand(n) < 0.1, 6] = -2
+    got = t_sa.weighted_accumulate(T(ids), T(w), T(g), n_rows).numpy()
+    pallas = _np(j_sa.weighted_accumulate(jnp.asarray(ids), jnp.asarray(w),
+                                          jnp.asarray(g), n_rows))
+    np.testing.assert_allclose(got[1:], pallas[1:], rtol=1e-5, atol=1e-6)
+    assert np.abs(got[7]).max() > 10 * np.abs(np.delete(got, 7, 0)).max()
+
+
 def test_weighted_accumulate_rounds_after_deduplication():
     """Two taps on one id in one row: their f32 weights are summed, THEN
     rounded to bf16: 1 + 1.5 * 2^-8 rounds to 1 + 2^-7, where the two
