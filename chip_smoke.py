@@ -27,7 +27,8 @@ ray_body_mask_clustered, 6 compact_mask; shortlist_frame: 2 nn_1_shortlist,
 weighted_accumulate, 2 nn_1, 1 ray_body_mask, 6 compact_mask).  It checks
 that each kernel agrees with its plain torch version on the inputs the
 paths gave it (indices, masks and compactions equal; squared distances
-bit-equal; the table gradient within the f32 reassociation bound), that
+bit-equal; the table gradient within the f32 reassociation bound of the
+same products summed in f64), that
 each clustered call agrees with the full-scan kernel on the same inputs,
 that every frame is finite with every budget-overflow counter at zero and
 the clustered frames within 45 dB of the default frame, that the train
@@ -56,8 +57,8 @@ import time
 WATCHDOG_S = 600
 # device-side names of the port's own CUDA kernels (csrc/*.cu)
 PORT_KERNELS = {"nn_1": ("nn1_kernel",),
-                "ray_body_mask": ("ray_body_mask_kernel",),
-                "compact_mask": ("cm_count", "cm_scan", "cm_scatter"),
+                "ray_body_mask": ("ray_mask_tiles_kernel",),
+                "compact_mask": ("compact_lookback_kernel",),
                 "weighted_accumulate": ("wa_kernel",),
                 "nn_1_clustered": ("nn1_cluster_kernel",),
                 "nn_1_shortlist": ("nn1_shortlist_kernel",),
@@ -90,6 +91,9 @@ PEAK_BYTES_S = 3.35e12
 # f32 operations per (query, vertex) pair in csrc/knn.cu and knn_cluster.cu
 NN1_OPS_PER_PAIR = 9     # 3 sub, 3 mul, 2 add, 1 compare
 RBM_OPS_PER_PAIR = 17    # 3 sub, 3+3 mul, 2+2 add (a, b), 2 mul, 1 sub, 1 min
+# ... of which w = v - o and a = |w|^2 (3 sub, 3 mul, 2 add) depend on the
+# ray's origin only: rays that share an origin share them
+RBM_OPS_PER_ORIGIN = 8
 # queries farther than this from the vertex centroid are the padding that
 # ray compaction parks at 1e6 m: f32 cluster bounds at that distance are
 # looser than a body's size, so the full-scan comparison leaves them out
@@ -153,9 +157,12 @@ def coop_queries(q_c, tile, torch):
     return int((per_tile * same).sum())
 
 
-def profiled(fn, torch):
+def profiled(fn, torch, expect):
     """Run ``fn`` once under torch.profiler: wall ms, device busy ms (sum of
-    kernel times), idle share, the port's kernels and the top ops."""
+    kernel times), idle share, the port's kernels and the top ops.  Fails
+    unless each port kernel that ``expect`` says ``fn`` launches shows that
+    many device kernels with nonzero device time (a renamed kernel would
+    otherwise drop out of the sum unseen)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -177,9 +184,15 @@ def profiled(fn, torch):
         port[key] = {"device_ms": sum(e.self_device_time_total
                                       for e in mine) / 1e3,
                      "kernels": sum(e.count for e in mine)}
+        if expect[key]:
+            check(port[key]["kernels"] == expect[key]
+                  and port[key]["device_ms"] > 0,
+                  f"profile: {key} shows {port[key]}, expected "
+                  f"{expect[key]} kernels with device time")
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms,
             "kernel_launches": sum(e.count for e in kernels),
+            "port_kernels_ms": sum(v["device_ms"] for v in port.values()),
             "port_kernels": port,
             "top_ops": [{"op": e.key[:60],
                          "device_ms": e.self_device_time_total / 1e3,
@@ -359,7 +372,7 @@ def main():
     # ---- where one frame's device time goes (torch.profiler) -------------
     t0 = time.perf_counter()
     with torch.inference_mode():
-        prof = profiled(lambda: model(batch, smpl_d), torch)
+        prof = profiled(lambda: model(batch, smpl_d), torch, FRAME_LAUNCHES)
     phase("profile", t0, frame_wall_ms_profiled=prof.pop("wall_ms_profiled"),
           **prof)
     del out, diag, acc
@@ -409,7 +422,7 @@ def main():
         check(mse == 0 or psnr >= 45.0,
               f"{name}: image vs the default frame at {psnr} dB < 45")
         with torch.inference_mode():
-            prof = profiled(lambda: mdl(batch, smpl_d), torch)
+            prof = profiled(lambda: mdl(batch, smpl_d), torch, expect)
         knn_cluster.CLUSTERED = False
         phase(name, t0, launches=launches[name], overflow=overflow_c,
               psnr_vs_frame_db=psnr,
@@ -419,6 +432,7 @@ def main():
               device_busy_ms=prof["device_busy_ms"],
               device_idle_share=prof["device_idle_share"],
               kernel_launches=prof["kernel_launches"],
+              port_kernels_ms=prof["port_kernels_ms"],
               port_kernels=prof["port_kernels"])
         del out_c, diag_c, img_c
 
@@ -493,7 +507,7 @@ def main():
           params_reached=len(reached), params_unreached=unreached)
 
     t0 = time.perf_counter()
-    prof = profiled(lambda: step_fn(state, batch, gen), torch)
+    prof = profiled(lambda: step_fn(state, batch, gen), torch, TRAIN_LAUNCHES)
     phase("train_profile", t0, step_wall_ms_profiled=prof.pop("wall_ms_profiled"),
           **prof)
     del before
@@ -572,10 +586,29 @@ def main():
     o_c, d, v_c, thr, act = recorded["ray_body_mask"][0]
     n, nv = o_c.shape[0], v_c.shape[0]
     tile = knn.RAY_TILE
-    act_t = torch.nn.functional.pad(act, (0, -n % tile)).reshape(-1, tile)
-    n_scanned = int(act_t.any(dim=1).sum()) * tile
-    b_ms, b_by = bound(n_scanned * nv * RBM_OPS_PER_PAIR,
-                       n * (12 + 12 + 1 + 1) + nv * 12)
+    tile_any = torch.nn.functional.pad(act, (0, -n % tile)).reshape(
+        -1, tile).any(dim=1)
+    n_scanned = int(tile_any.sum()) * tile
+    scanned = tile_any.repeat_interleave(tile)[:n]
+    origins = int(torch.unique(o_c[scanned], dim=0).shape[0])
+    # the least work on these rays: the origin-free operations of every
+    # scanned pair, and w, a once per (origin, vertex)
+    b_ms, b_by = bound(
+        nv * (n_scanned * (RBM_OPS_PER_PAIR - RBM_OPS_PER_ORIGIN)
+              + origins * RBM_OPS_PER_ORIGIN),
+        n * (12 + 12 + 1 + 1) + nv * 12)
+    # the same lines with each origin moved along its own ray: no two rays
+    # share an origin, so every pair takes all 17 operations
+    o_s = (o_c + d * torch.linspace(-0.3, 0.3, n, device=dev)[:, None]
+           ).contiguous()
+    mk = knn.ray_body_mask_cuda(o_s, d, v_c, thr, act)
+    mp = knn.ray_body_mask_plain(o_s, d, v_c, thr, act)
+    torch.cuda.synchronize()
+    note_err("ray_body_mask", mk, mp)
+    check(torch.equal(mk, mp), f"ray_body_mask, origins spread: masks differ "
+          f"({int((mk != mp).sum())} rays)")
+    cases.append({"kernel": "ray_body_mask", "call": "origins_spread", "n": n,
+                  "equal": True, "hits": int(mk.sum())})
     rows.append({
         "name": "ray_body_mask", "route": "cuda",
         "source": "sherf_tpu_torch/csrc/knn.cu",
@@ -588,7 +621,16 @@ def main():
         "plain_ms": cuda_ms(lambda: knn.ray_body_mask_plain(o_c, d, v_c, thr,
                                                             act), 3, torch),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "n": n,
-        "rays_scanned": n_scanned})
+        # the kernel issues no FMA: one operation per issue slot
+        "no_fma_ceiling_ms": 2 * b_ms,
+        # every scanned pair at 17 operations (no origin shared)
+        "all_pairs_bound_ms": bound(n_scanned * nv * RBM_OPS_PER_PAIR, 0)[0],
+        "rays_active": int(act.sum()), "rays_scanned": n_scanned,
+        "origins_scanned": origins,
+        "origins_spread_ms": cuda_ms(lambda: knn.ray_body_mask_cuda(
+            o_s, d, v_c, thr, act), 5, torch),
+        **knn.ray_body_mask_attrs()})
+    del o_s
 
     # compact_mask: every call of the frame and of one train step, plus the
     # frame's occupancy over all 512*512*48 samples (what the point
@@ -615,6 +657,60 @@ def main():
               f"compact_mask call {i} (n={m.shape[0]}, cap={cap}): differs")
         cases.append({"kernel": "compact_mask", "call": i, "n": m.shape[0],
                       "cap": cap, "survivors": int(m.sum()), "equal": True})
+
+    def per_launch(fn, reps=20):
+        """The device work of one call of ``fn``, from the profiler: the
+        compaction kernel's and the scratch memsets' ms (no launch gaps)
+        and how many of each a call issued.  The profiler's first window
+        is a warm-up (it can miss the first call's events) and only the
+        second is read.  Fails unless a call is one kernel and one memset
+        (to the nearest whole count)."""
+        from torch.profiler import ProfilerActivity, profile, schedule
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ev = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+        k = [e for e in ev if PORT_KERNELS["compact_mask"][0] in e.key]
+        mset = [e for e in ev if "Memset" in e.key]
+        out = {"kernel_ms": sum(e.self_device_time_total
+                                for e in k) / 1e3 / reps,
+               "memset_ms": sum(e.self_device_time_total
+                                for e in mset) / 1e3 / reps,
+               "kernels_per_call": sum(e.count for e in k) / reps,
+               "memsets_per_call": sum(e.count for e in mset) / reps}
+        check(round(out["kernels_per_call"]) == 1
+              and round(out["memsets_per_call"]) == 1,
+              f"compact_mask: a call issued {out}, expected one kernel and "
+              f"one memset")
+        return out
+
+    def back_to_back_ms(fn, reps=50):
+        """Host ms per call of ``fn`` issued back to back: the wrapper's own
+        cost where the device work is shorter."""
+        fn()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - ts) * 1e3 / reps
+
+    frame_calls = []
+    for m, cap in rec_frame.calls["compact_mask"]:
+        call = lambda: compaction.compact_mask_cuda(m, cap)  # noqa: E731
+        frame_calls.append({
+            "n": m.shape[0], "cap": cap, "survivors": int(m.sum()),
+            "ms": cuda_ms(call, 20, torch), **per_launch(call),
+            "back_to_back_ms": back_to_back_ms(call),
+            "bound_ms": bound(0, m.shape[0] + 5 * cap)[0]})
     m, cap = full_mask, point_cap
 
     def compact_library():
@@ -634,11 +730,17 @@ def main():
                             torch),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(compact_library, 5, torch), "n": m.shape[0],
-        "cap": cap})
+        "cap": cap, "calls": frame_calls,
+        **per_launch(lambda: compaction.compact_mask_cuda(m, cap)),
+        "frame_kernel_ms": sum(c["kernel_ms"] for c in frame_calls),
+        "frame_bound_ms": sum(c["bound_ms"] for c in frame_calls)})
     del full_mask
 
     # weighted_accumulate: every call of the first train step, within the
-    # f32 reassociation bound of the atomics' sum order
+    # f32 reassociation bound of the atomics' sum order, held against the
+    # same deduplicated bf16 products summed in f64 (each product is exact
+    # in f32, so that sum is true to ~1e-16; the plain version's own f32
+    # index_add_ drifts by most of the bound on the zero row)
     wa_calls = rec_train.calls["weighted_accumulate"]
     check(len(wa_calls) == TRAIN_LAUNCHES["weighted_accumulate"],
           f"{len(wa_calls)} weighted_accumulate calls recorded in step 1")
@@ -655,23 +757,32 @@ def main():
                 ids, w, g, n_rows), 5, torch)})
         got = segment_accum.weighted_accumulate_cuda(ids, w, g, n_rows)
         ref = segment_accum.weighted_accumulate_plain(ids, w, g, n_rows)
+        ref64 = segment_accum.weighted_accumulate_plain(
+            ids, w, g, n_rows, dtype=torch.float64)
         mag = segment_accum.weighted_accumulate_plain(ids, w.abs(), g.abs(),
                                                       n_rows)
-        # how much of the bound the kernel uses, and how much a second run of
-        # the plain version (f32 index_add_, atomics) uses against the first:
-        # on the zero row, whose sums run over ~10^5 products, the plain
-        # version's own rounding spread is a large part of the bound
+        # how much of the bound the kernel uses against the true sum; how
+        # much the plain version uses (its own f32 rounding, reported, not
+        # checked); and how far a second run of the plain version (f32
+        # atomics) lands from the first
         ref2 = segment_accum.weighted_accumulate_plain(ids, w, g, n_rows)
         torch.cuda.synchronize()
-        fin, bnd = torch.isfinite(ref), (1e-5 * mag).clamp(min=1e-30)
-        wa_by_call[-1]["bound_use"] = float(((got - ref).abs() / bnd)[fin].max())
+        fin, bnd = torch.isfinite(ref64), (1e-5 * mag).clamp(min=1e-30)
+        wa_by_call[-1]["bound_use"] = float(((got - ref64).abs()
+                                             / bnd)[fin].max())
+        wa_by_call[-1]["plain_use"] = float(((ref - ref64).abs()
+                                             / bnd)[fin].max())
         wa_by_call[-1]["plain_spread"] = float(((ref2 - ref).abs()
                                                 / bnd)[fin].max())
         e = note_err("weighted_accumulate", got, ref)
-        excess = float(((got - ref).abs() - 1e-5 * mag).max())
-        check(excess <= 1e-30, f"weighted_accumulate call {i}: |cuda - plain| "
-              f"exceeds 1e-5 * plain(|w|, |g|) by {excess} (max abs err {e}; "
-              f"{wa_by_call[-1]})")
+        for same in (torch.isnan, torch.isposinf, torch.isneginf):
+            check(torch.equal(same(got), same(ref64)),
+                  f"weighted_accumulate call {i}: {same.__name__} entries "
+                  f"differ from the f64 reference")
+        excess = float(((got - ref64).abs() - 1e-5 * mag)[fin].max())
+        check(excess <= 1e-30, f"weighted_accumulate call {i}: |cuda - "
+              f"ref64| exceeds 1e-5 * plain(|w|, |g|) by {excess} (max abs "
+              f"err vs plain {e}; {wa_by_call[-1]})")
         cases.append({"kernel": "weighted_accumulate", "call": i,
                       "n": ids.shape[0], "k": ids.shape[1], "c": g.shape[1],
                       "n_rows": n_rows, "max_abs_err": e,

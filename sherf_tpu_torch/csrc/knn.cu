@@ -9,14 +9,15 @@
 // ray_body_mask replaces _ray_seg_kernel / ray_body_mask_pallas
 // (knn_pallas.py:410, :554): for each ray (o, d), the minimum over vertices
 // of the squared distance to the infinite line, a - b*b/|d|^2 with
-// w = v - o, a = |w|^2, b = d.w, compared with a threshold.  A block of 256
-// rays (the Pallas tile) in which no ray is active writes false and skips
-// the scan.
+// w = v - o, a = |w|^2, b = d.w, compared with a threshold.  A tile of 256
+// consecutive rays (the Pallas tile) in which no ray is active writes false
+// and skips the scan; every ray of a tile with an active ray is computed.
 //
 // What bounds them on an H100: operations.  Each (query, vertex) pair
-// costs ~9 f32 operations (3 sub, 3 mul, 2 add, 1 min; ray_body_mask ~17),
-// and every vertex is reused by every query, so the bytes moved are tiny
-// next to N*V*9 operations.  chip_smoke.py states the bound against the
+// costs ~9 f32 operations (3 sub, 3 mul, 2 add, 1 min; ray_body_mask 17,
+// or 9 where rays share their origin, see below), and every vertex is
+// reused by every query, so the bytes moved are tiny next to the
+// operations.  chip_smoke.py states the bound against the
 // 67 TFLOP/s f32 CUDA-core peak, which counts an FMA as two operations;
 // this code issues no FMA (see below), one operation per issue slot, so
 // the ceiling it can reach is about twice that bound.
@@ -58,15 +59,38 @@
 //     1/128 of the cost.
 // A d2 that is NaN never wins (as the strict '<' of a sequential scan);
 // a query with no finite d2 gets (inf, 0), as torch.min's first minimum.
+//
+// ray_body_mask's design, on the same lines:
+//   * Persistent blocks of 256 threads (two per SM at V = 6890) take
+//     256-ray tiles from a global atomic counter.  A tile with no active
+//     ray is written false by the block that takes it, which stages
+//     nothing for it; a block stages the vertices once, at its first
+//     active tile.
+//   * Eight rays a lane: a warp holds a whole tile, and each of the
+//     block's eight warps scans one eighth of the vertices for it, so one
+//     broadcast LDS.128 of a vertex serves eight pairs.
+//   * A warp whose 256 rays share one origin (every ray of a pinhole
+//     camera does) computes w = v - o and a = |w|^2 once a vertex for all
+//     eight of its rays: 9 rounded operations a pair instead of 17, with
+//     the same bits.  Other warps compute every pair in full.
+//   * The eighths merge by OR of (min < thr) ballots in shared memory: a
+//     ray's minimum is below thr iff some eighth's is, and dist can be a
+//     little negative after rounding, so float bits cannot be ordered.
+// A dist that is NaN never wins (fminf); a ray with no finite dist is
+// false.
+//
+// Both kernels take their tiles from a __device__ counter that the host
+// zeroes before each launch on the caller's stream.  Two calls of one
+// kernel running at once on different streams would race on it.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
 
-namespace {
+#include "persistent.cuh"
 
-constexpr int kThreads = 256;  // = RSEG_P, the Pallas ray tile
+namespace {
 
 // nn_1
 constexpr int kNnQ = 4;                        // queries per lane
@@ -82,6 +106,16 @@ static_assert(kNnGroupThreads == kNnTile, "one output per group thread");
 
 __device__ unsigned int g_nn1_next_tile;       // the tile counter
 
+// ray_body_mask
+constexpr int kRayTile = 256;                  // = RSEG_P, the Pallas ray tile
+constexpr int kRayQ = kRayTile / 32;           // rays a lane (a warp: a tile)
+constexpr int kRayWarps = 8;                   // each scans 1/8 of V
+constexpr int kRayThreads = 32 * kRayWarps;    // one output per thread
+
+static_assert(kRayThreads == kRayTile, "one output per thread");
+
+__device__ unsigned int g_rbm_next_tile;       // the tile counter
+
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
                    __fmul_rn(z, z));
@@ -95,13 +129,6 @@ __device__ __forceinline__ float dist2(float4 p, float qx, float qy,
 __device__ __forceinline__ unsigned long long nn_key(float d, int j) {
   return (static_cast<unsigned long long>(__float_as_uint(d)) << 32)
       | static_cast<unsigned>(j);
-}
-
-__device__ __forceinline__ void stage_vertices(const float* __restrict__ v,
-                                               int nv, float4* sv) {
-  for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-    sv[j] = make_float4(v[3 * j], v[3 * j + 1], v[3 * j + 2], 0.0f);
-  }
 }
 
 // (V, 3) floats read in order by consecutive threads
@@ -260,58 +287,141 @@ nn1_kernel(const float* __restrict__ q, int n, const float* __restrict__ v,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-ray_body_mask_kernel(const float* __restrict__ o, const float* __restrict__ dir,
-                     const unsigned char* __restrict__ active, int n,
-                     const float* __restrict__ v, int nv, float thr,
-                     unsigned char* __restrict__ out) {
+// The squared distance from vertex w = v - o to the line of direction d:
+// a - (b*b) * dd_inv, b = d.w, rounded as the plain version's separate ops.
+__device__ __forceinline__ float line_dist(float a, float w0, float w1,
+                                           float w2, float dx, float dy,
+                                           float dz, float dd_inv) {
+  const float b = __fadd_rn(__fadd_rn(__fmul_rn(dx, w0), __fmul_rn(dy, w1)),
+                            __fmul_rn(dz, w2));
+  return __fsub_rn(a, __fmul_rn(__fmul_rn(b, b), dd_inv));
+}
+
+__global__ void __launch_bounds__(kRayThreads, 2)
+ray_mask_tiles_kernel(const float* __restrict__ o,
+                      const float* __restrict__ dir,
+                      const unsigned char* __restrict__ active, int n,
+                      const float* __restrict__ v, int nv, float thr,
+                      unsigned char* __restrict__ out) {
   extern __shared__ float4 sv[];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int act = 1;
-  if (active != nullptr) act = (i < n) ? (active[i] != 0) : 0;
-  if (!__syncthreads_or(act)) {
-    if (i < n) out[i] = 0;
-    return;
+  __shared__ unsigned hits[kRayWarps][kRayQ];
+  __shared__ int tile_of;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ntiles = (n + kRayTile - 1) / kRayTile;
+  const int j0 = warp * nv / kRayWarps;
+  const int j1 = (warp + 1) * nv / kRayWarps;
+  bool staged = false;
+
+  while (true) {
+    if (threadIdx.x == 0) tile_of = atomicAdd(&g_rbm_next_tile, 1u);
+    __syncthreads();
+    const int tile = tile_of;
+    if (tile >= ntiles) break;                    // the whole block leaves
+    const int base = tile * kRayTile;
+    const int i = base + threadIdx.x;             // this thread's output
+    const int act = i < n && (active == nullptr || active[i] != 0);
+    if (!__syncthreads_or(act)) {
+      if (i < n) out[i] = 0;
+      continue;
+    }
+    if (!staged) {
+      stage_vertices_coalesced(v, nv, sv);
+      __syncthreads();
+      staged = true;
+    }
+    // ray base + 32k + lane; past n: copies of ray n-1
+    float ox[kRayQ], oy[kRayQ], oz[kRayQ];
+    float dx[kRayQ], dy[kRayQ], dz[kRayQ], dd_inv[kRayQ], best[kRayQ];
+#pragma unroll
+    for (int k = 0; k < kRayQ; ++k) {
+      const int r = min(base + 32 * k + lane, n - 1);
+      ox[k] = o[3 * r];
+      oy[k] = o[3 * r + 1];
+      oz[k] = o[3 * r + 2];
+      dx[k] = dir[3 * r];
+      dy[k] = dir[3 * r + 1];
+      dz[k] = dir[3 * r + 2];
+      dd_inv[k] = __fdiv_rn(1.0f, fmaxf(sq3(dx[k], dy[k], dz[k]), 1e-12f));
+      best[k] = INFINITY;
+    }
+    // every warp loads the same 256 rays and so takes the same branch
+    const unsigned x0 = __shfl_sync(0xffffffffu, __float_as_uint(ox[0]), 0);
+    const unsigned y0 = __shfl_sync(0xffffffffu, __float_as_uint(oy[0]), 0);
+    const unsigned z0 = __shfl_sync(0xffffffffu, __float_as_uint(oz[0]), 0);
+    bool same = true;
+#pragma unroll
+    for (int k = 0; k < kRayQ; ++k)
+      same = same && __float_as_uint(ox[k]) == x0
+          && __float_as_uint(oy[k]) == y0 && __float_as_uint(oz[k]) == z0;
+    if (__all_sync(0xffffffffu, same)) {
+#pragma unroll 2
+      for (int j = j0; j < j1; ++j) {
+        const float4 p = sv[j];
+        const float w0 = __fsub_rn(p.x, ox[0]);
+        const float w1 = __fsub_rn(p.y, oy[0]);
+        const float w2 = __fsub_rn(p.z, oz[0]);
+        const float a = sq3(w0, w1, w2);
+#pragma unroll
+        for (int k = 0; k < kRayQ; ++k)
+          best[k] = fminf(best[k], line_dist(a, w0, w1, w2, dx[k], dy[k],
+                                             dz[k], dd_inv[k]));
+      }
+    } else {
+#pragma unroll 2
+      for (int j = j0; j < j1; ++j) {
+        const float4 p = sv[j];
+#pragma unroll
+        for (int k = 0; k < kRayQ; ++k) {
+          const float w0 = __fsub_rn(p.x, ox[k]);
+          const float w1 = __fsub_rn(p.y, oy[k]);
+          const float w2 = __fsub_rn(p.z, oz[k]);
+          best[k] = fminf(best[k], line_dist(sq3(w0, w1, w2), w0, w1, w2,
+                                             dx[k], dy[k], dz[k], dd_inv[k]));
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRayQ; ++k) {
+      const unsigned hit = __ballot_sync(0xffffffffu, best[k] < thr);
+      if (lane == 0) hits[warp][k] = hit;
+    }
+    __syncthreads();
+    unsigned word = 0;
+#pragma unroll
+    for (int w = 0; w < kRayWarps; ++w) word |= hits[w][warp];
+    if (i < n) out[i] = (word >> lane) & 1u;
   }
-  stage_vertices(v, nv, sv);
-  __syncthreads();
-  if (i >= n) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
-  const float dd_inv = __fdiv_rn(1.0f, fmaxf(sq3(dx, dy, dz), 1e-12f));
-  float best = INFINITY;
-  for (int j = 0; j < nv; ++j) {
-    const float4 p = sv[j];
-    const float w0 = __fsub_rn(p.x, ox);
-    const float w1 = __fsub_rn(p.y, oy);
-    const float w2 = __fsub_rn(p.z, oz);
-    const float a = sq3(w0, w1, w2);
-    const float b = __fadd_rn(__fadd_rn(__fmul_rn(dx, w0), __fmul_rn(dy, w1)),
-                              __fmul_rn(dz, w2));
-    const float dist = __fsub_rn(a, __fmul_rn(__fmul_rn(b, b), dd_inv));
-    best = fminf(best, dist);
-  }
-  out[i] = best < thr ? 1 : 0;
 }
 
 int smem_bytes(int nv) { return nv * static_cast<int>(sizeof(float4)); }
 
-// static shared memory of nn1_kernel besides the staged vertices
+// static shared memory of each kernel besides the staged vertices
 constexpr int kNnStaticSmem =
     kNnGroups * kNnTile * static_cast<int>(sizeof(unsigned long long))
     + kNnGroups * static_cast<int>(sizeof(int));
+constexpr int kRayStaticSmem =
+    (kRayWarps * kRayQ + 1) * static_cast<int>(sizeof(unsigned));
+
+template <typename T>
+cudaError_t zero_symbol(const T& symbol, cudaStream_t st) {
+  void* p = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&p, symbol);
+  if (err != cudaSuccess) return err;
+  return cudaMemsetAsync(p, 0, sizeof(T), st);
+}
 
 }  // namespace
 
 extern "C" {
 
-// The most vertices both kernels can stage (nn_1 also holds its merge
-// keys in shared memory).
+// The most vertices both kernels can stage beside their own shared memory
+// (nn_1's merge keys, ray_body_mask's hit words).
 int sherf_knn_max_vertices() {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (optin - kNnStaticSmem) / static_cast<int>(sizeof(float4));
+  return (optin - std::max(kNnStaticSmem, kRayStaticSmem))
+      / static_cast<int>(sizeof(float4));
 }
 
 // queries per tile of nn_1; a tile whose queries are bit-identical (a
@@ -326,19 +436,12 @@ int sherf_nn1(const float* q, int n, const float* v, int nv, float* d2,
   cudaError_t err = cudaFuncSetAttribute(
       nn1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nn1_kernel,
-                                                      kNnThreads, smem);
-  if (err != cudaSuccess) return err;
   const int tiles = (n + kNnTile - 1) / kNnTile;
-  const int blocks = std::max(1, std::min((tiles + kNnGroups - 1) / kNnGroups,
-                                          sms * std::max(per_sm, 1)));
-  void* counter = nullptr;
-  err = cudaGetSymbolAddress(&counter, g_nn1_next_tile);
+  int blocks = 0;
+  err = persistent_blocks(nn1_kernel, kNnThreads, smem,
+                          (tiles + kNnGroups - 1) / kNnGroups, &blocks);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(counter, 0, sizeof(unsigned int), st);
+  err = zero_symbol(g_nn1_next_tile, st);
   if (err != cudaSuccess) return err;
   nn1_kernel<<<blocks, kNnThreads, smem, st>>>(q, n, v, nv, d2, idx);
   return cudaGetLastError();
@@ -347,15 +450,32 @@ int sherf_nn1(const float* q, int n, const float* v, int nv, float* d2,
 int sherf_ray_body_mask(const float* o, const float* d,
                         const unsigned char* active, int n, const float* v,
                         int nv, float thr, unsigned char* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = smem_bytes(nv);
   cudaError_t err = cudaFuncSetAttribute(
-      ray_body_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ray_mask_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  ray_body_mask_kernel<<<blocks, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  int blocks = 0;
+  err = persistent_blocks(ray_mask_tiles_kernel, kRayThreads, smem,
+                          (n + kRayTile - 1) / kRayTile, &blocks);
+  if (err != cudaSuccess) return err;
+  err = zero_symbol(g_rbm_next_tile, st);
+  if (err != cudaSuccess) return err;
+  ray_mask_tiles_kernel<<<blocks, kRayThreads, smem, st>>>(
       o, d, active, n, v, nv, thr, out);
   return cudaGetLastError();
+}
+
+// ray_body_mask's kernel as built: out[0] registers a thread, out[1] local
+// (spilled) bytes a thread
+int sherf_ray_body_mask_attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, ray_mask_tiles_kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
 }
 
 const char* sherf_error_string(int err) {

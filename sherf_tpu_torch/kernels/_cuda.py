@@ -3,10 +3,10 @@
 All sources in ``sherf_tpu_torch/csrc/*.cu`` go through ONE ``nvcc``
 invocation into a shared library with a plain C interface
 (``libsherf_kernels-<hash>.so`` under ``sherf_tpu_torch/_build/``, keyed by
-a hash of the sources and flags), loaded with ``ctypes``.  No PyTorch
-headers, no ``torch.utils.cpp_extension``, no ``ninja``: a build with
-PyTorch's extension builder took minutes where plain ``nvcc`` takes
-seconds, and every fresh machine builds anew.
+a hash of the sources, their headers ``csrc/*.cuh`` and the flags), loaded
+with ``ctypes``.  No PyTorch headers, no ``torch.utils.cpp_extension``, no
+``ninja``: a build with PyTorch's extension builder took minutes where plain
+``nvcc`` takes seconds, and every fresh machine builds anew.
 
 The library is built at first use (never on import).  A failed build or
 load raises.  Each C entry point launches on the stream it is given and
@@ -49,8 +49,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sherf_nn1": (_I, [_P, _I, _P, _I, _P, _P, _P]),
     "sherf_ray_body_mask": (_I, [_P, _P, _P, _I, _P, _I, ctypes.c_float, _P, _P]),
-    "sherf_compact_mask": (_I, [_P, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "sherf_ray_body_mask_attrs": (_I, [_P]),
+    "sherf_compact_mask": (_I, [_P, _I, _I, _P, _P, _P, _P]),
     "sherf_compact_tile": (_I, []),
+    "sherf_compact_scratch_words": (_I, [_I]),
     "sherf_knn_max_vertices": (_I, []),
     "sherf_nn1_tile": (_I, []),
     "sherf_weighted_accumulate": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
@@ -95,7 +97,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in [*_sources(), *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libsherf_kernels-{h.hexdigest()[:16]}.so"

@@ -7,8 +7,9 @@ holds the positions of the first ``cap`` True entries in ascending order and
 the sentinel N in the tail; valid = idx < N is a prefix.  Stability is
 load-bearing: the segmented ray march needs ascending ray-major order.
 
-CUDA tensors go to the three-pass kernel in ``csrc/compaction.cu``; CPU
-tensors to :func:`compact_mask_plain`.  Its integer outputs carry no
+CUDA tensors go to the one-launch kernel in ``csrc/compaction.cu`` (a
+single-pass scan with decoupled look-back); CPU tensors to
+:func:`compact_mask_plain`.  Its integer outputs carry no
 gradient: the wrapper runs outside autograd.
 """
 
@@ -47,12 +48,12 @@ def compact_mask_cuda(mask: torch.Tensor, cap: int):
     if n == 0:
         return idx.fill_(0), valid.fill_(False)
     lib = _cuda.library()
-    nblk = -(-n // lib.sherf_compact_tile())
-    scratch = torch.empty((2 * nblk + 1,), dtype=torch.int32, device=dev)
+    # the tile counter and the tiles' status words, zeroed by the call
+    scratch = torch.empty((lib.sherf_compact_scratch_words(n),),
+                          dtype=torch.int64, device=dev)
     _cuda.check(lib.sherf_compact_mask(
         mask.data_ptr(), n, cap, idx.data_ptr(), valid.data_ptr(),
-        scratch.data_ptr(), scratch[nblk:].data_ptr(),
-        scratch[2 * nblk:].data_ptr(), _cuda.stream_of(mask)), "compact_mask")
+        scratch.data_ptr(), _cuda.stream_of(mask)), "compact_mask")
     _cuda.LAUNCHES["compact_mask"] += 1
     return idx, valid
 

@@ -24,6 +24,7 @@ plain versions.)
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -141,15 +142,14 @@ def nn_1_tables_diag(query: torch.Tensor, ref: torch.Tensor,
 # ray_body_mask
 
 
-def ray_body_mask_plain(o_c: torch.Tensor, d: torch.Tensor, v_c: torch.Tensor,
-                        threshold_sq: float,
-                        active: Optional[torch.Tensor] = None):
-    """Plain version on CENTRED origins/vertices: (N,) bool."""
-    n = o_c.shape[0]
-    thr = torch.tensor(threshold_sq, dtype=torch.float32, device=o_c.device)
+def ray_line_min_plain(o_c: torch.Tensor, d: torch.Tensor,
+                       v_c: torch.Tensor) -> torch.Tensor:
+    """(N,) f32: each ray's minimum over the vertices of the squared
+    distance from its LINE, a - b*b/max(|d|^2, 1e-12) with w = v - o,
+    a = |w|^2, b = d.w, on CENTRED origins/vertices."""
     vx, vy, vz = (v_c[None, :, k] for k in range(3))
     outs = []
-    for s in range(0, n, PLAIN_CHUNK):
+    for s in range(0, o_c.shape[0], PLAIN_CHUNK):
         o, dr = o_c[s:s + PLAIN_CHUNK], d[s:s + PLAIN_CHUNK]
         dd = dr[:, 0:1] * dr[:, 0:1] + dr[:, 1:2] * dr[:, 1:2]
         dd = dd + dr[:, 2:3] * dr[:, 2:3]
@@ -161,10 +161,18 @@ def ray_body_mask_plain(o_c: torch.Tensor, d: torch.Tensor, v_c: torch.Tensor,
         a = a + w2 * w2
         b = dr[:, 0:1] * w0 + dr[:, 1:2] * w1
         b = b + dr[:, 2:3] * w2
-        dist = a - b * b * dd_inv
-        outs.append(dist.amin(dim=1) < thr)
-    out = (torch.cat(outs) if outs
-           else torch.zeros((0,), dtype=torch.bool, device=o_c.device))
+        outs.append((a - b * b * dd_inv).amin(dim=1))
+    return (torch.cat(outs) if outs
+            else torch.zeros((0,), dtype=torch.float32, device=o_c.device))
+
+
+def ray_body_mask_plain(o_c: torch.Tensor, d: torch.Tensor, v_c: torch.Tensor,
+                        threshold_sq: float,
+                        active: Optional[torch.Tensor] = None):
+    """Plain version on CENTRED origins/vertices: (N,) bool."""
+    n = o_c.shape[0]
+    thr = torch.tensor(threshold_sq, dtype=torch.float32, device=o_c.device)
+    out = ray_line_min_plain(o_c, d, v_c) < thr
     if active is not None:
         # a tile of RAY_TILE rays with no active ray skips its scan: False
         pad = -n % RAY_TILE
@@ -182,6 +190,8 @@ def ray_body_mask_cuda(o_c, d, v_c, threshold_sq: float, active=None):
     _cuda.require(d, "ray_d", torch.float32, (n, 3), dev)
     _cuda.require(v_c, "verts", torch.float32, (None, 3), dev)
     nv = v_c.shape[0]
+    if 3 * n >= 2 ** 31:
+        raise ValueError("ray_body_mask: 3 * n must fit an int32 offset")
     lib = _cuda.library()
     if nv > lib.sherf_knn_max_vertices():
         raise ValueError(f"ray_body_mask: {nv} vertices exceed the "
@@ -198,6 +208,15 @@ def ray_body_mask_cuda(o_c, d, v_c, threshold_sq: float, active=None):
             "ray_body_mask")
         _cuda.LAUNCHES["ray_body_mask"] += 1
     return out
+
+
+def ray_body_mask_attrs() -> dict:
+    """The CUDA kernel as built for the current device: registers and
+    spilled (local) bytes a thread."""
+    out = (ctypes.c_int * 2)()
+    _cuda.check(_cuda.library().sherf_ray_body_mask_attrs(
+        ctypes.addressof(out)), "ray_body_mask_attrs")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 @torch.no_grad()

@@ -72,18 +72,23 @@ def _dedup_weights(ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def weighted_accumulate_plain(ids: torch.Tensor, w: torch.Tensor,
-                              g: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """``_scatter_accumulate``: (n_rows, C) f32, summed with ``index_add_``
-    (row-major over (n, k))."""
+                              g: torch.Tensor, n_rows: int,
+                              dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """``_scatter_accumulate``: (n_rows, C), summed with ``index_add_``
+    (row-major over (n, k)) in ``dtype``.  Each product of a bf16 weight and
+    a bf16 grad value is exact in f32, so ``dtype=torch.float64`` gives the
+    true sum of the same products to ~1e-16: the reference against which
+    the kernel's own f32 rounding is measured."""
     C = g.shape[-1]
-    out = torch.zeros((n_rows + 1, C), dtype=torch.float32, device=g.device)
+    out = torch.zeros((n_rows + 1, C), dtype=dtype, device=g.device)
     for s in range(0, ids.shape[0], PLAIN_CHUNK):
         idc = ids[s:s + PLAIN_CHUNK].long()
         wq = _dedup_weights(idc, w[s:s + PLAIN_CHUNK]).to(torch.bfloat16).float()
         gq = g[s:s + PLAIN_CHUNK].to(torch.bfloat16).float()
         slot = torch.where((idc >= 0) & (idc < n_rows), idc,
                            torch.full_like(idc, n_rows))
-        upd = wq[:, :, None] * gq[:, None, :]                    # (n, K, C)
+        upd = (wq[:, :, None] * gq[:, None, :]).to(dtype)        # (n, K, C)
         out.index_add_(0, slot.reshape(-1), upd.reshape(-1, C))
     return out[:n_rows]
 

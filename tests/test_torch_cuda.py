@@ -138,18 +138,209 @@ def test_ray_body_mask_kernel_equals_plain(dev, with_active):
         assert not bool(mk[:4096].any())
 
 
+def _rays_at(rng, verts, n, origin):
+    """n rays aimed at the body (hits and misses).  origin "camera": one
+    origin for all (a pinhole camera's rays, the kernel's shared-origin
+    scan); "spread": each origin moved along its own ray by its own
+    distance (every pair computed in full)."""
+    o = np.tile(np.asarray([[0.1, 0.2, -1.0]], np.float32), (n, 1))
+    tgt = verts[rng.randint(0, len(verts), n)] + rng.randn(n, 3).astype(np.float32) * 0.2
+    d = (tgt - o).astype(np.float32)
+    if origin == "spread":
+        o = (o + d * rng.uniform(-0.3, 0.3, (n, 1))).astype(np.float32)
+    return o, d
+
+
+def _rbm_equal(dev, o, d, verts, thr, active=None):
+    """Kernel against plain on centred inputs: raw masks equal."""
+    o_c, v_c = knn._centre(torch.from_numpy(o).to(dev),
+                           torch.from_numpy(verts).to(dev))
+    d_t = torch.from_numpy(d).to(dev)
+    act = None if active is None else torch.from_numpy(active).to(dev)
+    mk = knn.ray_body_mask_cuda(o_c, d_t, v_c, thr, act)
+    mp = knn.ray_body_mask_plain(o_c, d_t, v_c, thr, act)
+    torch.cuda.synchronize()
+    assert torch.equal(mk, mp)
+    return mk.cpu().numpy()
+
+
+THR = (0.05 + 1e-3) ** 2
+
+
+@pytest.mark.parametrize("origin", ["camera", "spread"])
+@pytest.mark.parametrize("v", [1, 31, 32, 33, 6890, "max"])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 70_001, 262_144])
+def test_ray_body_mask_kernel_shapes(dev, n, v, origin):
+    """N at and around one 256-ray tile and the frame's 262,144; V below,
+    at and above the eighth of a warp's range, SMPL's 6,890 and the most
+    the shared memory holds."""
+    if v == "max":
+        v = knn._cuda.library().sherf_knn_max_vertices()
+    rng = np.random.RandomState(n + v)
+    verts = _verts(rng, v)
+    o, d = _rays_at(rng, verts, n, origin)
+    m = _rbm_equal(dev, o, d, verts, THR)
+    if n >= 70_001 and v >= 6890:
+        assert 0 < int(m.sum()) < n
+
+
+@pytest.mark.parametrize("origin", ["camera", "spread"])
+@pytest.mark.parametrize("which", ["0", "255", "256", "last", "all", "none"])
+def test_ray_body_mask_kernel_active_tiles(dev, which, origin):
+    """One active ray at a tile's first or last ray, or at the last ray of
+    a partial last tile, every other tile inactive; all active; none."""
+    rng = np.random.RandomState(7)
+    verts = _verts(rng)
+    n = 70_001
+    o, d = _rays_at(rng, verts, n, origin)
+    act = np.zeros(n, bool) if which != "all" else np.ones(n, bool)
+    if which not in ("all", "none"):
+        act[n - 1 if which == "last" else int(which)] = True
+    m = _rbm_equal(dev, o, d, verts, THR, act)
+    tile_any = np.pad(act, (0, -n % 256)).reshape(-1, 256).any(axis=1)
+    assert not m[~np.repeat(tile_any, 256)[:n]].any()
+    if which == "all":
+        assert 0 < int(m.sum()) < n
+
+
+@pytest.mark.parametrize("origin", ["camera", "spread"])
+def test_ray_body_mask_kernel_odd_rays(dev, origin):
+    """Zero-length directions (the 1e-12 clamp), rays parked at 1e6 m (the
+    budget's padding) and a NaN in one ray's origin and another's
+    direction, spread over tiles."""
+    rng = np.random.RandomState(8)
+    verts = _verts(rng)
+    n = 5000
+    o, d = _rays_at(rng, verts, n, origin)
+    d[100:140] = 0.0                       # zero-length: the clamp
+    d[3000] = 0.0
+    o[600:900] = 1e6                       # parked far away
+    o[4100:4400] = 1e6
+    d[4100:4400] = [1.0, -2.0, 0.5]
+    o[1234, 1] = np.nan
+    d[2345, 2] = np.nan
+    m = _rbm_equal(dev, o, d, verts, THR)
+    assert not m[[1234, 2345]].any()
+    assert not m[600:900].any() and not m[4100:4400].any()
+
+
+@pytest.mark.parametrize("origin", ["camera", "spread"])
+def test_ray_body_mask_kernel_on_the_threshold(dev, origin):
+    """A ray whose minimum equals thr fails the strict '<'; with thr one
+    ulp above (the minimum one ulp below thr), it passes."""
+    rng = np.random.RandomState(9)
+    verts = _verts(rng)
+    o, d = _rays_at(rng, verts, 600, origin)
+    o_c, v_c = knn._centre(torch.from_numpy(o).to(dev),
+                           torch.from_numpy(verts).to(dev))
+    d_t = torch.from_numpy(d).to(dev)
+    dmin = knn.ray_line_min_plain(o_c, d_t, v_c).cpu().numpy()
+    r = int(np.argmin(np.abs(dmin - THR)))
+    for thr, want in ((dmin[r], False),
+                      (np.nextafter(dmin[r], np.float32(np.inf)), True)):
+        m = _rbm_equal(dev, o, d, verts, float(thr))
+        assert bool(m[r]) is want
+
+
+def test_ray_body_mask_kernel_back_to_back(dev):
+    """Two calls with different inputs queued without a synchronise: the
+    tile counter is reset by each launch."""
+    rng = np.random.RandomState(10)
+    verts = torch.from_numpy(_verts(rng)).to(dev)
+    calls = []
+    for n, origin in ((70_001, "camera"), (3000, "spread"),
+                      (262_144, "camera")):
+        o, d = _rays_at(rng, verts.cpu().numpy(), n, origin)
+        o_c, v_c = knn._centre(torch.from_numpy(o).to(dev), verts)
+        d_t = torch.from_numpy(d).to(dev)
+        act = torch.from_numpy(rng.rand(n) < 0.5).to(dev)
+        mk = knn.ray_body_mask_cuda(o_c, d_t, v_c, THR, act)
+        calls.append((o_c, d_t, v_c, act, mk))
+    for o_c, d_t, v_c, act, mk in calls:
+        assert torch.equal(mk, knn.ray_body_mask_plain(o_c, d_t, v_c, THR, act))
+
+
+def test_ray_body_mask_wrapper_counts_and_reports(dev):
+    rng = np.random.RandomState(11)
+    verts = torch.from_numpy(_verts(rng)).to(dev)
+    before = knn._cuda.LAUNCHES["ray_body_mask"]
+    knn.ray_body_mask(verts[:300] - 1.0, verts[:300], verts, THR)
+    assert knn._cuda.LAUNCHES["ray_body_mask"] == before + 1
+    attrs = knn.ray_body_mask_attrs()
+    assert 0 < attrs["registers"] <= 128 and attrs["local_bytes"] >= 0
+    too_many = knn._cuda.library().sherf_knn_max_vertices() + 1
+    v_big = torch.zeros((too_many, 3), device=dev)
+    with pytest.raises(ValueError):
+        knn.ray_body_mask_cuda(verts[:4], verts[:4], v_big, THR)
+
+
 @pytest.mark.parametrize("n,p,cap", [
     (1, 1.0, 1), (8191, 0.5, 100), (8192, 0.5, 4096), (100_000, 0.3, 30_000),
     (100_000, 0.3, 29_000), (100_000, 0.3, 40_000), (3_000_001, 0.05, 150_000),
-    (50_000, 0.0, 256)])
+    (50_000, 0.0, 256),
+    # n around a 16-byte group and a 4096-byte tile, and the frame's 12.6M
+    # samples, each with the caps around its survivor count
+    *[(n, 0.3, "around") for n in (1, 15, 16, 17, "tile-1", "tile",
+                                   "tile+1", 12_582_912)],
+    # all-True and all-False masks
+    *[(n, p, "around") for p in (1.0, 0.0) for n in (17, 4097, 100_003)]])
 def test_compact_mask_kernel_equals_plain(dev, n, p, cap):
+    """idx and valid equal plain's.  cap "around": 1, one below, at and one
+    above the survivor count, and n."""
+    tile = compaction._cuda.library().sherf_compact_tile()
+    n = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}.get(n, n)
     rng = np.random.RandomState(n)
     m = torch.from_numpy(rng.rand(n) < p).to(dev)
+    for c in _caps(int(m.sum()), n) if cap == "around" else [cap]:
+        _cm_equal(dev, m, c)
+
+
+def _cm_equal(dev, m, cap):
+    """Kernel against plain: idx and valid equal."""
     ik, vk = compaction.compact_mask_cuda(m, cap)
     ip, vp = compaction.compact_mask_plain(m, cap)
     torch.cuda.synchronize()
-    assert torch.equal(ik, ip)
-    assert torch.equal(vk, vp)
+    assert torch.equal(ik, ip) and torch.equal(vk, vp)
+
+
+def _caps(s, n):
+    """1, one below, at and one above the survivor count s, and n."""
+    return sorted({c for c in (1, s - 1, s, s + 1, n) if c >= 1})
+
+
+@pytest.mark.parametrize("offset", [1, 3, 15])
+@pytest.mark.parametrize("n", [10, 3 * 4096 + 5])
+def test_compact_mask_kernel_unaligned_views(dev, offset, n):
+    """A mask that is a view starting `offset` bytes into a larger tensor:
+    its head and end are partial 16-byte groups (n = 10 at offset 3: one
+    group holds both)."""
+    rng = np.random.RandomState(offset + n)
+    big = torch.from_numpy(rng.rand(n + 64) < 0.4).to(dev)
+    big[:offset] = True                       # survivors just before the view
+    big[offset + n:] = True                   # and just after it
+    m = big[offset:offset + n]
+    assert m.is_contiguous() and m.data_ptr() % 16 == offset % 16
+    for cap in _caps(int(m.sum()), n):
+        _cm_equal(dev, m, cap)
+
+
+def test_compact_mask_kernel_back_to_back(dev):
+    """Calls of different sizes queued without a synchronise (each zeroes
+    its own scratch), and one launch counted per call."""
+    rng = np.random.RandomState(12)
+    before = compaction._cuda.LAUNCHES["compact_mask"]
+    calls = []
+    for n, cap in ((1_179_648, 417_792), (55_120, 21_248), (262_144, 24_576),
+                   (17, 3), (1_179_648, 100)):
+        m = torch.from_numpy(rng.rand(n) < 0.3).to(dev)
+        calls.append((m, cap, compaction.compact_mask(m, cap)))
+    assert compaction._cuda.LAUNCHES["compact_mask"] == before + len(calls)
+    for m, cap, (ik, vk) in calls:
+        ip, vp = compaction.compact_mask_plain(m, cap)
+        assert torch.equal(ik, ip) and torch.equal(vk, vp)
+    compaction.compact_mask(m, 0)                    # nothing to launch
+    compaction.compact_mask(m[:0], 5)
+    assert compaction._cuda.LAUNCHES["compact_mask"] == before + len(calls)
 
 
 def _wa_inputs(rng, n, k, c, n_rows, sort):
@@ -167,19 +358,38 @@ def _wa_inputs(rng, n, k, c, n_rows, sort):
     return ids, w, g
 
 
-def _wa_check(dev, ids, w, g, n_rows):
-    """|kernel - plain| <= 1e-5 * plain(ids, |w|, |g|) + 1e-30: the f32
-    atomics sum in another order, so the bound is the reassociation error
-    of the absolute sums."""
+def _wa_refs(dev, ids, w, g, n_rows):
+    """(kernel, ref64, mag): the kernel's table, the same deduplicated bf16
+    products summed in f64 (exact products, so the true sum to ~1e-16),
+    and the f32 sum of their absolute values."""
     t = lambda a: torch.from_numpy(a).to(dev)
     got = segment_accum.weighted_accumulate_cuda(t(ids), t(w), t(g), n_rows)
-    ref = segment_accum.weighted_accumulate_plain(t(ids), t(w), t(g), n_rows)
+    ref64 = segment_accum.weighted_accumulate_plain(
+        t(ids), t(w), t(g), n_rows, dtype=torch.float64)
     mag = segment_accum.weighted_accumulate_plain(t(ids), t(np.abs(w)),
                                                   t(np.abs(g)), n_rows)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape == (n_rows, g.shape[1])
-    assert bool(((got - ref).abs() <= 1e-5 * mag + 1e-30).all())
+    assert got.shape == ref64.shape == (n_rows, g.shape[1])
+    return got, ref64, mag
+
+
+def _wa_check(dev, ids, w, g, n_rows):
+    """|kernel - ref64| <= 1e-5 * plain(ids, |w|, |g|) + 1e-30: the f32
+    atomics sum in their own order, so the bound is the reassociation error
+    of the absolute sums, measured against the true sum."""
+    got, ref64, mag = _wa_refs(dev, ids, w, g, n_rows)
+    assert bool(((got - ref64).abs() <= 1e-5 * mag + 1e-30).all())
     return got
+
+
+def _wa_check_non_finite(got, ref64, mag):
+    """NaN and +-inf where the f64 reference has them; the finite entries
+    within the bound of :func:`_wa_check`."""
+    assert torch.equal(torch.isnan(got), torch.isnan(ref64))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(ref64))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref64))
+    fin = torch.isfinite(ref64)
+    assert bool(((got - ref64).abs()[fin] <= 1e-5 * mag[fin] + 1e-30).all())
 
 
 @pytest.mark.parametrize("sort", [False, True])
@@ -280,19 +490,10 @@ def test_weighted_accumulate_kernel_non_finite_runs(dev):
     ids[bad, 4] = ids[bad, 0]
     ids[bad[::2], 6] = 0
     ids[bad[::2], 7] = 0                  # a dropped duplicate of id 0
-    t = lambda a: torch.from_numpy(a).to(dev)
-    got = segment_accum.weighted_accumulate_cuda(t(ids), t(w), t(g), n_rows)
-    ref = segment_accum.weighted_accumulate_plain(t(ids), t(w), t(g), n_rows)
-    mag = segment_accum.weighted_accumulate_plain(t(ids), t(np.abs(w)),
-                                                  t(np.abs(g)), n_rows)
-    torch.cuda.synchronize()
+    got, ref, mag = _wa_refs(dev, ids, w, g, n_rows)
     assert bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
     assert bool(torch.isnan(ref[0]).any())
-    assert torch.equal(torch.isnan(got), torch.isnan(ref))
-    assert torch.equal(torch.isposinf(got), torch.isposinf(ref))
-    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
-    fin = torch.isfinite(ref)
-    assert bool(((got - ref).abs()[fin] <= 1e-5 * mag[fin] + 1e-30).all())
+    _wa_check_non_finite(got, ref, mag)
 
 
 def test_weighted_accumulate_kernel_non_finite_rows(dev):
@@ -310,18 +511,9 @@ def test_weighted_accumulate_kernel_non_finite_rows(dev):
     g[bad[10:20], rng.randint(0, c, 10)] = -np.inf
     g[bad[20:], rng.randint(0, c, 10)] = np.nan
     ids[bad, 4] = ids[bad, 0]                        # duplicates on those rows
-    t = lambda a: torch.from_numpy(a).to(dev)
-    got = segment_accum.weighted_accumulate_cuda(t(ids), t(w), t(g), n_rows)
-    ref = segment_accum.weighted_accumulate_plain(t(ids), t(w), t(g), n_rows)
-    mag = segment_accum.weighted_accumulate_plain(t(ids), t(np.abs(w)),
-                                                  t(np.abs(g)), n_rows)
-    torch.cuda.synchronize()
+    got, ref, mag = _wa_refs(dev, ids, w, g, n_rows)
     assert bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
-    assert torch.equal(torch.isnan(got), torch.isnan(ref))
-    assert torch.equal(torch.isposinf(got), torch.isposinf(ref))
-    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
-    fin = torch.isfinite(ref)
-    assert bool(((got - ref).abs()[fin] <= 1e-5 * mag[fin] + 1e-30).all())
+    _wa_check_non_finite(got, ref, mag)
 
 
 def _smpl_body(seed):

@@ -156,6 +156,27 @@ def test_ray_body_mask_matches_pallas_kernel(with_active):
         assert not m_t[:256].any()
 
 
+def test_ray_body_mask_matches_pallas_kernel_on_one_active_tile():
+    """513 rays (a partial third tile) with one active ray, the first of
+    the second tile: only that tile is scanned, by every ray in it."""
+    rng = np.random.RandomState(13)
+    verts = _body(rng, 1500)
+    n = 513
+    o, d = _rays(rng, verts, n)
+    active = np.zeros(n, bool)
+    active[256] = True
+    thr = (0.05 + 1e-3) ** 2
+    m_j = kp.ray_body_mask_pallas(
+        jnp.asarray(o), jnp.asarray(d), jnp.zeros(n), jnp.ones(n),
+        jnp.asarray(verts), thr, interpret=True, active=jnp.asarray(active))
+    m_t = ray_body_mask(torch.from_numpy(o), torch.from_numpy(d),
+                        torch.from_numpy(verts), thr,
+                        active=torch.from_numpy(active))
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    assert not m_t[:256].any() and not m_t[512:].any()
+    assert 0 < int(m_t[256:512].sum()) < 256
+
+
 def test_ray_body_mask_on_the_threshold():
     """A ray whose minimum line distance IS the threshold fails the strict
     '<'; one ulp above, it passes.  Checked on the port alone: at an exact
@@ -181,6 +202,8 @@ def test_ray_body_mask_on_the_threshold():
     (9000, 0.02, 512),
     (4096, 0.0, 256),      # all-False mask
     (300, 1.0, 300),       # all-True mask
+    (4097, 0.3, 1000),     # one Pallas block + 1 entry, cap below survivors
+    (4097, 0.3, 1500),     # ... and above them
 ])
 def test_compact_mask_matches_pallas_kernel(n, p, cap):
     rng = np.random.RandomState(n + int(p * 100))
