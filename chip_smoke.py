@@ -22,13 +22,16 @@ with random weights drawn from a seeded ``torch.Generator``:
 For each path the launch counters are reset just before it and read just
 after, and must be what the path launches (the frame: 2 nn_1, 1
 ray_body_mask, 6 compact_mask; cluster_frame: 2 nn_1_clustered, 1
-ray_body_mask_clustered, 6 compact_mask; shortlist_frame: 2 nn_1_shortlist,
-1 ray_body_mask_clustered, 6 compact_mask; the train step, per step: 3
-weighted_accumulate, 2 nn_1, 1 ray_body_mask, 6 compact_mask).  It checks
-that each kernel agrees with its plain torch version on the inputs the
-paths gave it (indices, masks and compactions equal; squared distances
-bit-equal; the table gradient within the f32 reassociation bound of the
-same products summed in f64), that
+ray_body_mask_clustered, 3 cluster_prep, 6 compact_mask; shortlist_frame:
+2 nn_1_shortlist, 1 ray_body_mask_clustered, 3 cluster_prep, 6
+compact_mask; the train step, per step: 3 weighted_accumulate, 2 nn_1, 1
+ray_body_mask, 6 compact_mask).  It checks that each kernel agrees with
+its plain torch version on the inputs the paths gave it (indices, masks
+and compactions equal; squared distances bit-equal; the cluster prep's
+order, rows, centre, centroids and radii bit-equal; nn_1_shortlist's tile
+lists equal; the table gradient within the f32 reassociation bound of the
+same products summed in f64), that each public clustered wrapper issues
+at most 4 device operations a call (profiler), that
 each clustered call agrees with the full-scan kernel on the same inputs,
 that every frame is finite with every budget-overflow counter at zero and
 the clustered frames within 45 dB of the default frame, that the train
@@ -62,15 +65,20 @@ PORT_KERNELS = {"nn_1": ("nn1_kernel",),
                 "weighted_accumulate": ("wa_kernel",),
                 "nn_1_clustered": ("nn1_cluster_kernel",),
                 "nn_1_shortlist": ("nn1_shortlist_kernel",),
-                "ray_body_mask_clustered": ("ray_cluster_kernel",)}
+                "ray_body_mask_clustered": ("ray_cluster_kernel",),
+                "cluster_prep": ("cluster_prep_kernel",)}
 NONE = dict.fromkeys(PORT_KERNELS, 0)
 # launches per frame at batch 1: point + canonical KNN, one ray mask, ray /
 # point / exact compaction + 3 sparse-conv downsamples
 FRAME_LAUNCHES = {**NONE, "nn_1": 2, "ray_body_mask": 1, "compact_mask": 6}
+# ... with the clustered KNNs: each clustered call also runs the prep kernel
 CLUSTER_LAUNCHES = {**NONE, "nn_1_clustered": 2, "ray_body_mask_clustered": 1,
-                    "compact_mask": 6}
+                    "cluster_prep": 3, "compact_mask": 6}
 SHORTLIST_LAUNCHES = {**NONE, "nn_1_shortlist": 2,
-                      "ray_body_mask_clustered": 1, "compact_mask": 6}
+                      "ray_body_mask_clustered": 1, "cluster_prep": 3,
+                      "compact_mask": 6}
+# device operations (kernels and memsets) a clustered wrapper may issue
+CLUSTER_WRAPPER_OPS = 4
 # per train step: the frame's kernels + 3 readout scales (weighted_accumulate)
 TRAIN_LAUNCHES = {**FRAME_LAUNCHES, "weighted_accumulate": 3}
 KNN_SHORTLIST = 8        # any value > 0 switches the shortlist on
@@ -658,13 +666,12 @@ def main():
         cases.append({"kernel": "compact_mask", "call": i, "n": m.shape[0],
                       "cap": cap, "survivors": int(m.sum()), "equal": True})
 
-    def per_launch(fn, reps=20):
-        """The device work of one call of ``fn``, from the profiler: the
-        compaction kernel's and the scratch memsets' ms (no launch gaps)
-        and how many of each a call issued.  The profiler's first window
-        is a warm-up (it can miss the first call's events) and only the
-        second is read.  Fails unless a call is one kernel and one memset
-        (to the nearest whole count)."""
+    def device_work(fn, reps=20):
+        """The device work of one call of ``fn``, from the profiler: per
+        call, the device operations (kernels, memsets, copies) by name,
+        each with its count and ms (no launch gaps), and their total
+        count.  The profiler's first window is a warm-up (it can miss the
+        first call's events) and only the second is read."""
         from torch.profiler import ProfilerActivity, profile, schedule
         fn()
         torch.cuda.synchronize()
@@ -678,14 +685,24 @@ def main():
                 prof.step()
         ev = [e for e in prof.key_averages()
               if e.device_type != torch.autograd.DeviceType.CPU]
-        k = [e for e in ev if PORT_KERNELS["compact_mask"][0] in e.key]
-        mset = [e for e in ev if "Memset" in e.key]
-        out = {"kernel_ms": sum(e.self_device_time_total
-                                for e in k) / 1e3 / reps,
-               "memset_ms": sum(e.self_device_time_total
-                                for e in mset) / 1e3 / reps,
-               "kernels_per_call": sum(e.count for e in k) / reps,
-               "memsets_per_call": sum(e.count for e in mset) / reps}
+        ops = {e.key: {"per_call": e.count / reps,
+                       "ms": e.self_device_time_total / 1e3 / reps}
+               for e in ev}
+        return {"ops": ops,
+                "ops_per_call": sum(o["per_call"] for o in ops.values())}
+
+    def per_launch(fn):
+        """compact_mask's kernel and memset ms and counts a call; fails
+        unless a call is one kernel and one memset (to the nearest whole
+        count)."""
+        ops = device_work(fn)["ops"]
+        k = [o for key, o in ops.items()
+             if PORT_KERNELS["compact_mask"][0] in key]
+        mset = [o for key, o in ops.items() if "Memset" in key]
+        out = {"kernel_ms": sum(o["ms"] for o in k),
+               "memset_ms": sum(o["ms"] for o in mset),
+               "kernels_per_call": sum(o["per_call"] for o in k),
+               "memsets_per_call": sum(o["per_call"] for o in mset)}
         check(round(out["kernels_per_call"]) == 1
               and round(out["memsets_per_call"]) == 1,
               f"compact_mask: a call issued {out}, expected one kernel and "
@@ -814,13 +831,19 @@ def main():
         "n_rows": n_rows, "calls": wa_by_call})
     del upd, flat_ids, wa_calls
 
-    # the clustered kernels: every call of cluster_frame and shortlist_frame
-    # against its plain version (same prep, same visit rule: bit-equal) and
-    # against the full-scan kernel on the same raw inputs.  The two centre
-    # on f32 means that differ in the last bit, which moves each centred
-    # coordinate by up to half an ulp (6e-8 m at 1 m) and d2 by up to about
-    # 1e-4 relative or 1e-7 m^2; ties may go to another vertex at the same
-    # distance, so the index is held to the f64 distance at the full scan's
+    # the clustered kernels: every call of cluster_frame and shortlist_frame.
+    # The prep kernel's Clusters against the plain prep (bit for bit), each
+    # kernel against its plain version on them (same visit rule: bit-equal;
+    # B6's lists against shortlist_tiles), and against the full-scan kernel
+    # on the same raw inputs.  The two centre on f32 means that differ in
+    # the last bit, which moves each centred coordinate by up to half an
+    # ulp (6e-8 m at 1 m) and d2 by up to about 1e-4 relative or 1e-7 m^2;
+    # ties may go to another vertex at the same distance, so the index is
+    # held to the f64 distance at the full scan's
+    check(_cuda.library().sherf_nn1_cluster_unit() == knn_cluster.NN_GROUP
+          and _cuda.library().sherf_nn1_shortlist_tile() == knn_cluster.P_TILE,
+          "the clustered kernels' grain differs from the plain versions'")
+
     def knn_vs_full(key, i, query, ref, d2, idx):
         d_f, i_f = knn.nn_1_cuda(*knn._centre(query, ref))
         near = (query - ref.mean(0)).norm(dim=1) < FAR_M
@@ -836,6 +859,23 @@ def main():
         return {"full_scan_idx_equal": int((idx == i_f)[near].sum()),
                 "far_queries": int((~near).sum()), "prune_flips": flips}
 
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def checked_prep(key, i, ref, csize, sorted_mean):
+        """The prep kernel's Clusters of ``ref``, held bit for bit against
+        the plain prep's."""
+        ck = knn_cluster.make_clusters_cuda(ref, csize, sorted_mean)
+        cp = knn_cluster.make_clusters_plain(ref, csize, sorted_mean)
+        torch.cuda.synchronize()
+        for f in ("order", "vs", "ctr0", "cent", "rad"):
+            a, b = getattr(ck, f), getattr(cp, f)
+            note_err("cluster_prep", a, b)
+            check(a.shape == b.shape and torch.equal(bits(a), bits(b)),
+                  f"cluster_prep for {key} call {i}: {f} differs from the "
+                  f"plain prep")
+        return ck
+
     clus = {"nn_1_clustered": rec_cluster["cluster_frame"]["nn_1_clustered"],
             "nn_1_shortlist": rec_cluster["shortlist_frame"]["nn_1_shortlist"],
             "ray_body_mask_clustered": (
@@ -843,48 +883,57 @@ def main():
                 + rec_cluster["shortlist_frame"]["ray_body_mask_clustered"])}
     prep = {}
     for i, (query, ref) in enumerate(clus["nn_1_clustered"]):
-        cl = knn_cluster.make_clusters(ref, knn_cluster.C_SIZE, sorted_mean=True)
+        cl = checked_prep("nn_1_clustered", i, ref, knn_cluster.C_SIZE, True)
         q_c = (query - cl.ctr0).contiguous()
-        d2k, ik = knn_cluster.nn_1_clustered_cuda(q_c, cl)
+        d2k, ik = knn_cluster.nn_1_clustered_cuda(query, cl)
         d2p, ip, visits = knn_cluster.nn_1_clustered_plain(q_c, cl)
         torch.cuda.synchronize()
         err = note_err("nn_1_clustered", d2k, d2p)
         note_err("nn_1_clustered", ik, ip)
         check(torch.equal(ik, ip), f"nn_1_clustered call {i}: indices differ")
-        check(torch.equal(d2k, d2p), f"nn_1_clustered call {i}: d2 not "
-              f"bit-equal (max abs err {err})")
+        check(torch.equal(bits(d2k), bits(d2p)), f"nn_1_clustered call {i}: "
+              f"d2 not bit-equal (max abs err {err})")
         full = knn_vs_full("nn_1_clustered", i, query, ref, d2k,
                            cl.order[ik.long()])
-        prep.setdefault("nn_1_clustered", (query, ref, cl, q_c, visits))
+        prep.setdefault("nn_1_clustered", (query, ref, cl, q_c, visits, d2k))
         cases.append({"kernel": "nn_1_clustered", "call": i,
                       "n": query.shape[0], "v": ref.shape[0], "equal": True,
-                      "pairs": int(visits.sum()), **full})
+                      "prep_equal": True, "pairs_admitted": int(visits.sum()),
+                      "pairs_needed": knn_cluster.needed_pairs(q_c, cl, d2k),
+                      **full})
     for i, (query, ref, _) in enumerate(clus["nn_1_shortlist"]):
-        cl = knn_cluster.make_clusters(ref, knn_cluster.SL_CSIZE,
-                                       sorted_mean=False)
+        cl = checked_prep("nn_1_shortlist", i, ref, knn_cluster.SL_CSIZE,
+                          False)
         q_c = (query - cl.ctr0).contiguous()
         counts, ids, _, _ = knn_cluster.shortlist_tiles(q_c, cl)
-        d2k, ik = knn_cluster.nn_1_shortlist_cuda(q_c, cl, counts, ids)
+        lists = (torch.empty_like(counts), torch.empty_like(ids))
+        d2k, ik, over = knn_cluster.nn_1_shortlist_cuda(query, cl, lists=lists)
         d2p, ip, visits = knn_cluster.nn_1_shortlist_plain(q_c, cl, counts, ids)
         torch.cuda.synchronize()
+        check(torch.equal(lists[0], counts) and torch.equal(lists[1], ids),
+              f"nn_1_shortlist call {i}: the kernel's tile lists differ from "
+              f"shortlist_tiles")
+        check(int(over) == 0, f"nn_1_shortlist call {i}: overflow {int(over)}")
         err = note_err("nn_1_shortlist", d2k, d2p)
         note_err("nn_1_shortlist", ik, ip)
         check(torch.equal(ik, ip), f"nn_1_shortlist call {i}: indices differ")
-        check(torch.equal(d2k, d2p), f"nn_1_shortlist call {i}: d2 not "
-              f"bit-equal (max abs err {err})")
+        check(torch.equal(bits(d2k), bits(d2p)), f"nn_1_shortlist call {i}: "
+              f"d2 not bit-equal (max abs err {err})")
         full = knn_vs_full("nn_1_shortlist", i, query, ref, d2k,
                            cl.order[ik.long()])
-        prep.setdefault("nn_1_shortlist", (query, ref, cl, q_c, visits,
-                                           counts, ids))
+        prep.setdefault("nn_1_shortlist", (query, ref, cl, q_c, visits, d2k,
+                                           counts))
         cases.append({"kernel": "nn_1_shortlist", "call": i,
                       "n": query.shape[0], "v": ref.shape[0], "equal": True,
-                      "pairs": int(visits.sum()),
+                      "prep_equal": True, "lists_equal": True,
+                      "pairs_admitted": int(visits.sum()),
+                      "pairs_needed": knn_cluster.needed_pairs(q_c, cl, d2k),
                       "clusters_per_tile_mean": float(counts.float().mean()),
                       **full})
     for i, (ray_o, ray_d, verts, thr) in enumerate(
             clus["ray_body_mask_clustered"]):
-        cl = knn_cluster.make_clusters(verts, knn_cluster.C_SIZE,
-                                       sorted_mean=True)
+        cl = checked_prep("ray_body_mask_clustered", i, verts,
+                          knn_cluster.C_SIZE, True)
         o_c = (ray_o - cl.ctr0).contiguous()
         ray_d = ray_d.contiguous()
         mk = knn_cluster.ray_body_mask_clustered_cuda(o_c, ray_d, cl, thr)
@@ -909,7 +958,7 @@ def main():
         prep.setdefault("ray_body_mask_clustered",
                         (ray_o, ray_d, verts, thr, cl, o_c, visits))
         cases.append({"kernel": "ray_body_mask_clustered", "call": i,
-                      "n": ray_o.shape[0], "equal": True,
+                      "n": ray_o.shape[0], "equal": True, "prep_equal": True,
                       "full_scan_borderline_flips": off.numel(),
                       "pairs": int(visits.sum()), "hits": int(mk.sum())})
 
@@ -920,19 +969,37 @@ def main():
                             compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
         return run
 
+    def wrapper_ops(fn):
+        """Device operations a call of a public clustered wrapper issues
+        (kernels, memsets, copies, from the profiler); fails above
+        CLUSTER_WRAPPER_OPS."""
+        work = device_work(fn)
+        check(round(work["ops_per_call"]) <= CLUSTER_WRAPPER_OPS,
+              f"a clustered wrapper issued {work}, more than "
+              f"{CLUSTER_WRAPPER_OPS} device operations a call")
+        return {"device_ops_per_call": work["ops_per_call"],
+                "device_ops": work["ops"]}
+
     # B5 and B6 timed at the point-budget KNN (the first call of each
-    # frame), B7 at the ray prune; bounds count the (query, vertex) pairs
-    # that each query's own bound test admitted (B5, B7) or that its tile
-    # visited (B6), as the plain versions report them.  full_scan_ms: the
-    # full-scan kernel on the same inputs (for B7 also with the default
-    # path's AABB tile skip); *wrapper_ms: the public function, prep and
-    # index remap included, against the full scan's
-    query, ref, cl, q_c, visits = prep["nn_1_clustered"]
+    # frame), B7 at the ray prune.  The bounds of B5 and B6 count the pairs
+    # these inputs need (pairs_needed: each run of bit-identical queries
+    # once, the rows of every cluster whose lower bound is <= the query's
+    # final d2); pairs_admitted is the count of PR 6-8 (the pairs each
+    # query's own bound test admitted, B5, or its tile listed, B6, copies
+    # included), and copies_share its part from queries that repeat the one
+    # before.  B7's bound counts the pairs each ray's test admitted.
+    # full_scan_ms: the full-scan kernel on the same inputs (for B7 also
+    # with the default path's AABB tile skip); *wrapper_ms: the public
+    # function, prep included, against the full scan's
+    query, ref, cl, q_c, visits, d2k = prep["nn_1_clustered"]
     n, nv, nc = query.shape[0], ref.shape[0], cl.cent.shape[0]
     chunk = max(1, int(4e9 // (nv * 4)))
     q_f, v_f = knn._centre(query, ref)
-    pairs = int(visits.sum())
-    b_ms, b_by = bound(pairs * NN1_OPS_PER_PAIR, n * 20 + nv * 12 + nc * 16)
+    admitted = int(visits.sum())
+    copies = ~knn_cluster.run_starts(q_c)
+    needed = knn_cluster.needed_pairs(q_c, cl, d2k)
+    nbytes = n * 20 + nv * 12 + nc * 16
+    b_ms, b_by = bound(needed * NN1_OPS_PER_PAIR, nbytes)
     rows.append({
         "name": "nn_1_clustered", "route": "cuda",
         "source": "sherf_tpu_torch/csrc/knn_cluster.cu",
@@ -940,7 +1007,8 @@ def main():
         "launches": launches["cluster_frame"]["nn_1_clustered"],
         "launches_by_path": by_path("nn_1_clustered"),
         "max_abs_err": errs["nn_1_clustered"],
-        "ms": cuda_ms(lambda: knn_cluster.nn_1_clustered_cuda(q_c, cl), 5, torch),
+        "ms": cuda_ms(lambda: knn_cluster.nn_1_clustered_cuda(query, cl), 5,
+                      torch),
         "plain_ms": cuda_ms(lambda: knn_cluster.nn_1_clustered_plain(q_c, cl),
                             3, torch),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -949,15 +1017,23 @@ def main():
         "wrapper_ms": cuda_ms(lambda: knn_cluster.nn_1_clustered(query, ref),
                               5, torch),
         "full_scan_wrapper_ms": cuda_ms(lambda: knn.nn_1(query, ref), 5, torch),
-        "n": n, "v": nv, "clusters": nc, "pairs": pairs,
-        "pairs_share": pairs / (n * nv)})
+        **wrapper_ops(lambda: knn_cluster.nn_1_clustered(query, ref)),
+        "n": n, "v": nv, "clusters": nc, "pairs_needed": needed,
+        "pairs_admitted": admitted,
+        "bound_admitted_ms": bound(admitted * NN1_OPS_PER_PAIR, nbytes)[0],
+        "copies": int(copies.sum()),
+        "copies_share_of_admitted": int(visits[copies].sum()) / max(admitted, 1),
+        "coop_queries": coop_queries(q_c, knn_cluster.NN_GROUP, torch),
+        "pairs_share": admitted / (n * nv)})
 
-    query, ref, cl, q_c, visits, counts, ids = prep["nn_1_shortlist"]
+    query, ref, cl, q_c, visits, d2k, counts = prep["nn_1_shortlist"]
     n, nv, nc = query.shape[0], ref.shape[0], cl.cent.shape[0]
     q_f, v_f = knn._centre(query, ref)
-    pairs = int(visits.sum())
-    b_ms, b_by = bound(pairs * NN1_OPS_PER_PAIR,
-                       n * 20 + nv * 12 + counts.numel() * 4 + ids.numel() * 4)
+    admitted = int(visits.sum())
+    copies = ~knn_cluster.run_starts(q_c)
+    needed = knn_cluster.needed_pairs(q_c, cl, d2k)
+    nbytes = n * 20 + nv * 12 + nc * 16
+    b_ms, b_by = bound(needed * NN1_OPS_PER_PAIR, nbytes)
     rows.append({
         "name": "nn_1_shortlist", "route": "cuda",
         "source": "sherf_tpu_torch/csrc/knn_cluster.cu",
@@ -965,19 +1041,25 @@ def main():
         "launches": launches["shortlist_frame"]["nn_1_shortlist"],
         "launches_by_path": by_path("nn_1_shortlist"),
         "max_abs_err": errs["nn_1_shortlist"],
-        "ms": cuda_ms(lambda: knn_cluster.nn_1_shortlist_cuda(
-            q_c, cl, counts, ids), 5, torch),
+        "ms": cuda_ms(lambda: knn_cluster.nn_1_shortlist_cuda(query, cl), 5,
+                      torch),
         "plain_ms": cuda_ms(lambda: knn_cluster.nn_1_shortlist_plain(
-            q_c, cl, counts, ids), 3, torch),
+            q_c, cl, *knn_cluster.shortlist_tiles(q_c, cl)[:2]), 3, torch),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(cdist_min(q_c, cl.vs), 3, torch),
         "full_scan_ms": cuda_ms(lambda: knn.nn_1_cuda(q_f, v_f), 5, torch),
         "wrapper_ms": cuda_ms(lambda: knn_cluster.nn_1_shortlist(query, ref),
                               5, torch),
         "full_scan_wrapper_ms": cuda_ms(lambda: knn.nn_1(query, ref), 5, torch),
+        **wrapper_ops(lambda: knn_cluster.nn_1_shortlist(query, ref)),
         "n": n, "v": nv, "clusters": nc, "tiles": counts.numel(),
         "clusters_per_tile_mean": float(counts.float().mean()),
-        "pairs": pairs, "pairs_share": pairs / (n * nv)})
+        "pairs_needed": needed, "pairs_admitted": admitted,
+        "bound_admitted_ms": bound(admitted * NN1_OPS_PER_PAIR, nbytes)[0],
+        "copies": int(copies.sum()),
+        "copies_share_of_admitted": int(visits[copies].sum()) / max(admitted, 1),
+        "coop_queries": coop_queries(q_c, knn_cluster.NN_GROUP, torch),
+        "pairs_share": admitted / (n * nv)})
 
     ray_o, ray_d, verts, thr, cl, o_c, visits = prep["ray_body_mask_clustered"]
     n, nv, nc = ray_o.shape[0], verts.shape[0], cl.cent.shape[0]
@@ -1005,8 +1087,35 @@ def main():
             ray_o, ray_d, verts, thr), 5, torch),
         "full_scan_wrapper_ms": cuda_ms(lambda: knn.ray_body_mask(
             ray_o, ray_d, verts, thr, active=act), 5, torch),
+        **wrapper_ops(lambda: knn_cluster.ray_body_mask_clustered(
+            ray_o, ray_d, verts, thr)),
         "n": n, "v": nv, "clusters": nc, "pairs": pairs,
         "pairs_share": pairs / (n * nv)})
+
+    # the prep kernel, timed at the point-budget KNN's vertices (B5's
+    # clusters); bound: its bytes (read V rows, write the order, the sorted
+    # rows, centroids and radii)
+    ref = prep["nn_1_clustered"][1]
+    nv = ref.shape[0]
+    nc = -(-nv // knn_cluster.C_SIZE)
+    b_ms, b_by = bound(0, nv * (12 + 8 + 12) + nc * 16 + 12)
+    rows.append({
+        "name": "cluster_prep", "route": "cuda",
+        "source": "sherf_tpu_torch/csrc/knn_cluster.cu",
+        # no Pallas kernel: the XLA prep of nn_1_clustered_pallas and its
+        # two siblings (morton_order, gather, centre, _cluster_stats_sized)
+        "replaces": "sherf_tpu/kernels/knn_pallas.py:220",
+        "launches": launches["cluster_frame"]["cluster_prep"],
+        "launches_by_path": by_path("cluster_prep"),
+        "max_abs_err": errs["cluster_prep"],
+        "ms": cuda_ms(lambda: knn_cluster.make_clusters_cuda(
+            ref, knn_cluster.C_SIZE, True), 20, torch),
+        "plain_ms": cuda_ms(lambda: knn_cluster.make_clusters_plain(
+            ref, knn_cluster.C_SIZE, True), 5, torch),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shortlist_ms": cuda_ms(lambda: knn_cluster.make_clusters_cuda(
+            ref, knn_cluster.SL_CSIZE, False), 20, torch),
+        "v": nv, "clusters": nc})
     del prep, clus
     rec_frame.calls.clear()
     rec_train.calls.clear()

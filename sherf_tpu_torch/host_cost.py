@@ -1,15 +1,20 @@
-"""Host cost of the compact_mask and ray_body_mask CUDA wrappers.
+"""Host cost of the port's CUDA wrappers at the frame's shapes.
 
 For each wrapper at the production frame's shapes (compact_mask at the
 frame's six (n, cap, survivors) calls; ray_body_mask at 262,144 rays and
-SMPL's 6,890 vertices), with inputs made from a seed:
+SMPL's 6,890 vertices; the public clustered wrappers nn_1_clustered and
+nn_1_shortlist at the point-budget call's 417,792 queries, 111,899 of them
+the budget's padding parked 1e6 m away, and ray_body_mask_clustered at the
+frame's rays), with inputs made from a seed:
 
 * ``host_ms``: median host time for one call to return, started with the
   card idle.  This covers the wrapper's checks and allocations, the C entry
-  point's queries, the memsets and the launch.
+  point's queries, the memsets and the launches.
 * ``back_to_back_ms``: time per call of calls issued back to back and
   synchronised once.  Where the device work is shorter than the host's,
   this is the host's rate.
+* ``device_ops``: for the clustered wrappers, the device operations
+  (kernels, memsets, copies) a call issues, from the profiler.
 
 ``--root DIR`` imports ``sherf_tpu_torch`` from the checkout at DIR, so two
 versions of the wrappers can be timed on one card, one process each:
@@ -35,6 +40,8 @@ FRAME_COMPACT_CALLS = ((262_144, 24_576, 16_094), (1_179_648, 417_792, 305_893),
                        (417_792, 180_224, 157_000), (55_120, 21_248, 19_125),
                        (169_984, 13_568, 12_330), (108_544, 4_096, 3_564))
 FRAME_RAYS, SMPL_VERTICES, ACTIVE_SHARE = 262_144, 6_890, 0.705
+# the point-budget KNN: queries, of which the tail is the budget's padding
+POINT_QUERIES, POINT_SURVIVORS = 417_792, 305_893
 
 
 def times(fn, torch, reps):
@@ -56,6 +63,22 @@ def times(fn, torch, reps):
     return statistics.median(host), (time.perf_counter() - ts) * 1e3 / reps
 
 
+def device_ops(fn, torch, reps=10):
+    """Device operations a call of ``fn`` issues, from the profiler (the
+    first window is a warm-up, the second is read)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU) / reps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(
@@ -72,7 +95,7 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         sys.exit("host_cost: needs a CUDA device")
-    from sherf_tpu_torch.kernels import compaction, knn
+    from sherf_tpu_torch.kernels import compaction, knn, knn_cluster
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
@@ -106,6 +129,21 @@ def main(argv=None):
     out["ray_body_mask"] = {"n": n, "vertices": SMPL_VERTICES,
                             "active": int(act.sum()), "host_ms": host_ms,
                             "back_to_back_ms": b2b_ms}
+
+    v_t, o_t = torch.from_numpy(v).to(dev), torch.from_numpy(o).to(dev)
+    q = np.full((POINT_QUERIES, 3), 1e6, np.float32)
+    q[:POINT_SURVIVORS] = (v[rng.randint(0, len(v), POINT_SURVIVORS)]
+                           + rng.randn(POINT_SURVIVORS, 3) * 0.03)
+    q_t = torch.from_numpy(q).to(dev)
+    thr = (0.05 + 1e-3) ** 2
+    for key, fn in (
+            ("nn_1_clustered", lambda: knn_cluster.nn_1_clustered(q_t, v_t)),
+            ("nn_1_shortlist", lambda: knn_cluster.nn_1_shortlist(q_t, v_t)),
+            ("ray_body_mask_clustered",
+             lambda: knn_cluster.ray_body_mask_clustered(o_t, d_t, v_t, thr))):
+        host_ms, b2b_ms = times(fn, torch, args.reps // 4)
+        out[key] = {"host_ms": host_ms, "back_to_back_ms": b2b_ms,
+                    "device_ops": device_ops(fn, torch)}
     try:
         out["nvidia_smi"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

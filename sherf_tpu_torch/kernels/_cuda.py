@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"nn_1": 0, "ray_body_mask": 0, "compact_mask": 0,
             "weighted_accumulate": 0, "nn_1_clustered": 0,
-            "nn_1_shortlist": 0, "ray_body_mask_clustered": 0}
+            "nn_1_shortlist": 0, "ray_body_mask_clustered": 0,
+            "cluster_prep": 0}
 # seconds the last nvcc build took in this process (None: loaded from cache
 # or not built yet)
 BUILD_INFO = {"seconds": None}
@@ -58,9 +59,14 @@ _SIGNATURES = {
     "sherf_weighted_accumulate": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "sherf_wa_max_taps": (_I, []),
     "sherf_wa_tiling": (_I, [_I, _I, _I, _P]),
-    "sherf_nn1_clustered": (_I, [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P]),
-    "sherf_nn1_shortlist": (_I, [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P,
-                                 _P]),
+    "sherf_cluster_prep": (_I, [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "sherf_cluster_prep_max_vertices": (_I, []),
+    "sherf_nn1_cluster_unit": (_I, []),
+    "sherf_nn1_shortlist_tile": (_I, []),
+    "sherf_nn1_clustered": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P,
+                                 _P, _P, _P]),
+    "sherf_nn1_shortlist": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P,
+                                 _P, _P, _P, _P, _P]),
     "sherf_ray_body_mask_clustered": (_I, [_P, _P, _I, _P, _I, _P, _P, _I, _I,
                                            ctypes.c_float, _P, _P]),
     "sherf_error_string": (ctypes.c_char_p, [_I]),

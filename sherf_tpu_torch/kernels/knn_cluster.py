@@ -1,5 +1,5 @@
 """Morton-clustered nearest-vertex kernels: ``nn_1_clustered``,
-``nn_1_shortlist`` and ``ray_body_mask_clustered``.
+``nn_1_shortlist`` and ``ray_body_mask_clustered``, and their cluster prep.
 
 Ports of the Pallas kernels ``nn_1_clustered_pallas`` (B5),
 ``nn_1_shortlist_pallas`` (B6) and ``ray_body_mask_clustered_pallas`` (B7)
@@ -16,8 +16,10 @@ visits only the clusters of vertices that a bound says may matter:
     ``max(d_c - r_c, 0)^2 <= best``;
   * B6: per tile of 512 queries, a bounding sphere gives each cluster a
     lower bound ``lb_r`` and the tile an upper bound ``ub_r``; the tile
-    visits the ``counts[t]`` clusters with ``lb_r <= ub_r`` in ascending
-    ``lb_r`` order (a stable sort);
+    lists the ``counts[t]`` clusters with ``lb_r <= ub_r`` in ascending
+    ``lb_r`` order (a stable sort) and visits them in that order, except
+    that a listed cluster c is skipped where every query q of the group
+    has ``(max(d_qc - r_c, 0) (1 - 1e-5))^2 > best_q``, its running best;
   * B7: a ray visits cluster c while it has not hit and
     ``max(sqrt(dl2) (1 - 1e-5) - r_c, 0)^2 < thr``, dl2 the squared
     distance from its line to the centroid.
@@ -25,7 +27,8 @@ visits only the clusters of vertices that a bound says may matter:
 Inside a visited cluster the distances are the full scan's exact
 elementwise f32 ones.  The Pallas kernels take the visit decision for a
 whole tile of 512 (256) queries; the CUDA kernels (``csrc/knn_cluster.cu``)
-take it for a warp of 32 with ``__any_sync``.  A visit can only lower a
+take it for the queries of a warp: NN_GROUP = 64 consecutive queries (two
+a lane) for B5 and B6, WARP = 32 rays for B7.  A visit can only lower a
 running minimum (or set a hit) where the bound says it may, so the grain
 changes the work and not the result.  Ties go to the first vertex in visit
 order: Morton order for B5, the tile's lb-sorted order for B6 — not the
@@ -33,15 +36,19 @@ lowest original index of the full scan.
 
 The vertices are centred on their mean: of the SORTED array for B5 and B7
 (``knn_pallas.py:222-223, :514-515``), of the unsorted one for B6
-(``:343-348``).  Padding rows never enter a scan or a radius.
+(``:343-348``).  That mean and each cluster's centroid are f64 sums in a
+fixed order (:func:`_lane_sum`, the prep kernel's own), rounded once to
+f32, so the prep kernel and :func:`make_clusters_plain` give the same bits.
+Padding rows never enter a scan or a radius.
 
 Each ``*_plain`` function applies the same visit rule as its kernel, at the
-same warp grain, with the same f32 operations, so kernel and plain version
-are bit-equal on the inputs the wrapper prepares.  The plain versions also
-return, per query, how many (query, vertex) pairs its own bound test
-admitted (B5, B7) or its tile visited (B6): the work the bound
-counts.  CPU tensors take the plain versions; CUDA tensors take the
-kernels, and nothing falls back.
+same grain, with the same f32 operations, so kernel and plain version
+are bit-equal on the same Clusters.  The plain versions also return, per
+query, how many (query, vertex) pairs its own bound test admitted (B5, B7)
+or its tile listed (B6); :func:`needed_pairs` counts the pairs that any
+exact search over the clusters has to visit.  CPU tensors take the plain
+versions; CUDA tensors take the kernels (the prep included), and nothing
+falls back.
 
 The switches read the JAX package's environment names, so one setting
 means the same in both packages: ``SHERF_KNN_CLUSTER`` (``CLUSTERED``),
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,9 +70,12 @@ SENTINEL = 1e6          # centroid of an all-padding cluster
 C_SIZE = int(os.environ.get("SHERF_KNN_CSIZE", "128"))
 CLUSTERED = os.environ.get("SHERF_KNN_CLUSTER", "0") != "0"
 SL_CSIZE = int(os.environ.get("SHERF_KNN_SL_CSIZE", "256"))
-P_TILE = 512            # queries per shortlist tile (one CUDA block)
-WARP = 32               # grain of the B5 / B7 visit decision (the Pallas
-                        # kernels decide per tile of 512 / RSEG_P = 256)
+P_TILE = 512            # queries per shortlist tile
+NN_GROUP = 64           # grain of the B5 / B6 visit decision: a warp's queries
+WARP = 32               # grain of the B7 visit decision: a warp's rays
+MAX_LISTED = 64         # clusters a B6 tile can rank (two a lane)
+PREP_LANES = 1024       # lanes of the prep kernel's sum of the centre
+CLUSTER_LANES = 32      # lanes of a cluster's sum (a warp)
 PLAIN_CHUNK = 65536     # queries per step of the plain versions
 
 
@@ -78,7 +89,7 @@ def _sq3(x, y, z):
 
 
 # ---------------------------------------------------------------------------
-# cluster prep (plain torch on the tensors' device, no host sync)
+# cluster prep: the plain version (torch on the tensors' device)
 
 
 def _morton_spread(x: torch.Tensor) -> torch.Tensor:
@@ -103,19 +114,38 @@ def morton_order(verts: torch.Tensor) -> torch.Tensor:
     return torch.argsort(code, stable=True)
 
 
+def _lane_sum(x: torch.Tensor, lanes: int) -> torch.Tensor:
+    """f64 sum over the rows of x (..., n, 3) in the prep kernel's order:
+    lane l adds rows l, l + lanes, l + 2 lanes, ... in turn, then lane l + h
+    is added onto lane l for h = lanes / 2, ..., 1.  (..., 3) f64."""
+    n = x.shape[-2]
+    x = torch.nn.functional.pad(x.double(), (0, 0, 0, -n % lanes))
+    x = x.reshape(*x.shape[:-2], -1, lanes, 3)
+    acc = torch.zeros_like(x[..., 0, :, :])
+    for i in range(x.shape[-3]):
+        acc = acc + x[..., i, :, :]
+    while acc.shape[-2] > 1:
+        h = acc.shape[-2] // 2
+        acc = acc[..., :h, :] + acc[..., h:, :]
+    return acc[..., 0, :]
+
+
 def cluster_stats(vs_pad: torch.Tensor, n_real: int, csize: int):
     """Per-cluster centroid (C, 3) and radius (C,) over consecutive
     ``csize`` rows of ``vs_pad`` (rows >= n_real are padding and ignored).
-    The radius is inflated, ``sqrt(r2) (1 + 1e-5) + 1e-6``, so that bounds
-    built from it in f32 stay conservative; an all-padding cluster's
-    centroid sits on SENTINEL (``knn_pallas.py:104-120``)."""
+    The centroid is the rows' f64 sum (:func:`_lane_sum`, 32 lanes) over
+    their count, rounded once to f32.  The radius is inflated,
+    ``sqrt(r2) (1 + 1e-5) + 1e-6``, so that bounds built from it in f32
+    stay conservative; an all-padding cluster's centroid sits on SENTINEL
+    (``knn_pallas.py:104-120``)."""
     C = vs_pad.shape[0] // csize
     grp = vs_pad.reshape(C, csize, 3)
     mask = (torch.arange(C * csize, device=vs_pad.device)
             .reshape(C, csize) < n_real)
     n_in = mask.sum(dim=1)
-    ctr = (torch.where(mask[..., None], grp, torch.zeros_like(grp)).sum(dim=1)
-           / torch.clamp(n_in, min=1)[:, None])
+    total = _lane_sum(torch.where(mask[..., None], grp, torch.zeros_like(grp)),
+                      CLUSTER_LANES)
+    ctr = (total / torch.clamp(n_in, min=1)[:, None]).float()
     diff = grp - ctr[:, None]
     r2 = torch.where(mask, _sq3(diff[..., 0], diff[..., 1], diff[..., 2]),
                      torch.zeros_like(diff[..., 0])).amax(dim=1)
@@ -128,8 +158,8 @@ def cluster_stats(vs_pad: torch.Tensor, n_real: int, csize: int):
 class Clusters:
     """A vertex set sorted into clusters: ``vs`` (V, 3) the sorted centred
     vertices (real rows only), ``cent`` (C, 3) and ``rad`` (C,) the cluster
-    bounds, ``order`` (V,) sorted row -> original vertex id, ``ctr0`` (3,)
-    the centre subtracted, ``csize`` rows per cluster."""
+    bounds, ``order`` (V,) int64 sorted row -> original vertex id, ``ctr0``
+    (3,) the centre subtracted, ``csize`` rows per cluster."""
     vs: torch.Tensor
     cent: torch.Tensor
     rad: torch.Tensor
@@ -153,23 +183,62 @@ def _pad_rows(vs: torch.Tensor, csize: int) -> torch.Tensor:
     return torch.cat([vs, vs.new_full((-vs.shape[0] % csize, 3), SENTINEL)])
 
 
-def make_clusters(ref: torch.Tensor, csize: int, sorted_mean: bool) -> Clusters:
+def make_clusters_plain(ref: torch.Tensor, csize: int,
+                        sorted_mean: bool) -> Clusters:
     """Morton-sort ``ref``, centre it (on the mean of the sorted array when
-    ``sorted_mean``, else of ``ref`` as given) and cut it into clusters."""
+    ``sorted_mean``, else of ``ref`` as given; an f64 sum over PREP_LANES
+    lanes, rounded once) and cut it into clusters."""
     order = morton_order(ref)
-    vs = ref.float()[order]
-    ctr0 = vs.mean(dim=0) if sorted_mean else ref.float().mean(dim=0)
+    raw = ref.float()
+    vs = raw[order]
+    total = _lane_sum(vs if sorted_mean else raw, PREP_LANES)
+    ctr0 = (total / ref.shape[0]).float()
     vs = (vs - ctr0).contiguous()
     cent, rad = cluster_stats(_pad_rows(vs, csize), vs.shape[0], csize)
     return Clusters(vs, cent.contiguous(), rad.contiguous(), order, ctr0, csize)
 
 
-def _group_any(flag: torch.Tensor) -> torch.Tensor:
-    """(N,) bool -> (N,) bool: True where any entry of its warp of WARP
-    consecutive entries is True (entries past N vote False)."""
+def make_clusters_cuda(ref: torch.Tensor, csize: int,
+                       sorted_mean: bool) -> Clusters:
+    """The prep kernel (one block): :func:`make_clusters_plain`'s Clusters,
+    bit for bit.  Counts its launch."""
+    dev = ref.device
+    _cuda.require(ref, "ref", torch.float32, (None, 3), dev)
+    nv = ref.shape[0]
+    lib = _cuda.library()
+    if not 0 < nv <= lib.sherf_cluster_prep_max_vertices():
+        raise ValueError(f"cluster prep: {nv} vertices, the kernel sorts 1 "
+                         f"to {lib.sherf_cluster_prep_max_vertices()}")
+    if csize < 1:
+        raise ValueError(f"cluster size {csize} < 1")
+    nc = -(-nv // csize)
+    order = torch.empty((nv,), dtype=torch.int64, device=dev)
+    vs = torch.empty((nv, 3), dtype=torch.float32, device=dev)
+    ctr0 = torch.empty((3,), dtype=torch.float32, device=dev)
+    cent = torch.empty((nc, 3), dtype=torch.float32, device=dev)
+    rad = torch.empty((nc,), dtype=torch.float32, device=dev)
+    _cuda.check(lib.sherf_cluster_prep(
+        ref.data_ptr(), nv, csize, int(bool(sorted_mean)), order.data_ptr(),
+        vs.data_ptr(), ctr0.data_ptr(), cent.data_ptr(), rad.data_ptr(),
+        _cuda.stream_of(ref)), "cluster_prep")
+    _cuda.LAUNCHES["cluster_prep"] += 1
+    return Clusters(vs, cent, rad, order, ctr0, csize)
+
+
+def make_clusters(ref: torch.Tensor, csize: int, sorted_mean: bool) -> Clusters:
+    """Morton-sorted, centred clusters of ``ref``: the prep kernel for a
+    CUDA tensor, :func:`make_clusters_plain` for a CPU one."""
+    if ref.is_cuda:
+        return make_clusters_cuda(ref.contiguous(), csize, sorted_mean)
+    return make_clusters_plain(ref, csize, sorted_mean)
+
+
+def _group_any(flag: torch.Tensor, grain: int) -> torch.Tensor:
+    """(N,) bool -> (N,) bool: True where any entry of its group of
+    ``grain`` consecutive entries is True (entries past N vote False)."""
     n = flag.shape[0]
-    f = torch.nn.functional.pad(flag, (0, -n % WARP))
-    return f.reshape(-1, WARP).any(dim=1).repeat_interleave(WARP)[:n]
+    f = torch.nn.functional.pad(flag, (0, -n % grain))
+    return f.reshape(-1, grain).any(dim=1).repeat_interleave(grain)[:n]
 
 
 def _scan(q: torch.Tensor, v: torch.Tensor):
@@ -178,6 +247,64 @@ def _scan(q: torch.Tensor, v: torch.Tensor):
     d2 = _sq3(v[None, :, 0] - q[:, 0:1], v[None, :, 1] - q[:, 1:2],
               v[None, :, 2] - q[:, 2:3])
     return torch.min(d2, dim=1)
+
+
+def run_starts(q: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: True where a query differs in some bit from the one
+    before it (the first of each run of bit-identical queries)."""
+    bits = q.contiguous().view(torch.int32)
+    first = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    if q.shape[0] > 1:
+        first[1:] = (bits[1:] != bits[:-1]).any(dim=1)
+    return first
+
+
+def needed_pairs(q_c: torch.Tensor, cl: Clusters, d2: torch.Tensor) -> int:
+    """The (query, vertex) pairs that any exact search over ``cl`` must
+    visit for CENTRED queries whose nearest squared distance is ``d2``: for
+    each run of bit-identical queries once, the rows of every cluster whose
+    f64 lower bound ``max(|q - ctr_c| - r_c, 0)^2`` is <= d2."""
+    first = run_starts(q_c)
+    q, d = q_c[first].double(), d2[first].double()
+    cent, rad, rows = cl.cent.double(), cl.rad.double(), cl.rows
+    total = 0
+    for s in range(0, q.shape[0], PLAIN_CHUNK):
+        dc = (q[s:s + PLAIN_CHUNK, None] - cent[None]).pow(2).sum(-1).sqrt()
+        lb = torch.clamp(dc - rad, min=0.0).pow(2)
+        total += int(((lb <= d[s:s + PLAIN_CHUNK, None]) * rows).sum())
+    return total
+
+
+def _require_clusters(cl: Clusters, dev) -> None:
+    _cuda.require(cl.vs, "vertices", torch.float32, (None, 3), dev)
+    nc = cl.cent.shape[0]
+    _cuda.require(cl.cent, "centroids", torch.float32, (nc, 3), dev)
+    _cuda.require(cl.rad, "radii", torch.float32, (nc,), dev)
+    _cuda.require(cl.ctr0, "centre", torch.float32, (3,), dev)
+    _cuda.require(cl.order, "order", torch.int64, (cl.vs.shape[0],), dev)
+    if nc * cl.csize < cl.vs.shape[0]:
+        raise ValueError(f"{nc} clusters of {cl.csize} cannot hold "
+                         f"{cl.vs.shape[0]} vertices")
+
+
+def _nn_launch_args(query: torch.Tensor, cl: Clusters, remap: bool, what: str):
+    """Checks shared by the B5 and B6 kernels: (n, nv, nc, outputs d2 and
+    idx, scratch for the tile counter and a zero word, order pointer)."""
+    dev = query.device
+    _cuda.require(query, "query", torch.float32, (None, 3), dev)
+    _require_clusters(cl, dev)
+    n, nv, nc = query.shape[0], cl.vs.shape[0], cl.cent.shape[0]
+    lib = _cuda.library()
+    if nv + nc > lib.sherf_knn_max_vertices():
+        raise ValueError(f"{what}: {nv} vertices and {nc} clusters exceed "
+                         f"the shared-memory capacity")
+    if 3 * n >= 2 ** 31:
+        raise ValueError(f"{what}: 3 * n must fit an int32 offset")
+    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((2,), dtype=torch.int32, device=dev)
+    order = cl.order.data_ptr() if remap else None
+    return lib, n, nv, nc, d2, idx, scratch, order
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +327,7 @@ def nn_1_clustered_plain(q_c: torch.Tensor, cl: Clusters):
     best = q_c.new_empty((n,))
     best_i = torch.zeros((n,), dtype=torch.int32, device=q_c.device)
     visits = torch.zeros((n,), dtype=torch.int32, device=q_c.device)
-    chunk = PLAIN_CHUNK // WARP * WARP     # whole warps per step
+    chunk = PLAIN_CHUNK // NN_GROUP * NN_GROUP     # whole groups per step
     for s in range(0, n, chunk):
         q = q_c[s:s + chunk]
         dc = _centroid_dist(q, cl.cent)
@@ -212,7 +339,7 @@ def nn_1_clustered_plain(q_c: torch.Tensor, cl: Clusters):
             m = torch.clamp(dc[:, c] - cl.rad[c], min=0.0)
             want = m * m <= b
             vis += torch.where(want, rows[c], 0).to(torch.int32)
-            sel = torch.nonzero(_group_any(want)).flatten()
+            sel = torch.nonzero(_group_any(want, NN_GROUP)).flatten()
             if sel.numel() == 0:
                 continue
             j0 = c * cl.csize
@@ -224,36 +351,20 @@ def nn_1_clustered_plain(q_c: torch.Tensor, cl: Clusters):
     return best, best_i, visits
 
 
-def nn_1_clustered_cuda(q_c: torch.Tensor, cl: Clusters):
-    """CUDA kernel on CENTRED queries -> (d2, idx in the SORTED numbering);
-    counts its launch."""
-    dev = q_c.device
-    _cuda.require(q_c, "query", torch.float32, (None, 3), dev)
-    _require_clusters(cl, dev)
-    n, nv, nc = q_c.shape[0], cl.vs.shape[0], cl.cent.shape[0]
-    lib = _cuda.library()
-    if nv + nc > lib.sherf_knn_max_vertices():
-        raise ValueError(f"nn_1_clustered: {nv} vertices and {nc} clusters "
-                         f"exceed the shared-memory capacity")
-    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+def nn_1_clustered_cuda(query: torch.Tensor, cl: Clusters, remap: bool = False):
+    """CUDA kernel on RAW queries (it subtracts ``cl.ctr0``) -> (d2, idx in
+    the SORTED numbering, or the original one with ``remap``); counts its
+    launch."""
+    lib, n, nv, nc, d2, idx, scratch, order = _nn_launch_args(
+        query, cl, remap, "nn_1_clustered")
     if n:
         _cuda.check(lib.sherf_nn1_clustered(
-            q_c.data_ptr(), n, cl.vs.data_ptr(), nv, cl.cent.data_ptr(),
-            cl.rad.data_ptr(), nc, cl.csize, d2.data_ptr(), idx.data_ptr(),
-            _cuda.stream_of(q_c)), "nn_1_clustered")
+            query.data_ptr(), n, cl.ctr0.data_ptr(), cl.vs.data_ptr(), nv,
+            cl.cent.data_ptr(), cl.rad.data_ptr(), nc, cl.csize, order,
+            d2.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+            _cuda.stream_of(query)), "nn_1_clustered")
         _cuda.LAUNCHES["nn_1_clustered"] += 1
     return d2, idx
-
-
-def _require_clusters(cl: Clusters, dev) -> None:
-    _cuda.require(cl.vs, "vertices", torch.float32, (None, 3), dev)
-    nc = cl.cent.shape[0]
-    _cuda.require(cl.cent, "centroids", torch.float32, (nc, 3), dev)
-    _cuda.require(cl.rad, "radii", torch.float32, (nc,), dev)
-    if nc * cl.csize < cl.vs.shape[0]:
-        raise ValueError(f"{nc} clusters of {cl.csize} cannot hold "
-                         f"{cl.vs.shape[0]} vertices")
 
 
 @torch.no_grad()
@@ -264,11 +375,9 @@ def nn_1_clustered(query: torch.Tensor, ref: torch.Tensor):
     vertex in Morton order."""
     _check_points(query, ref)
     cl = make_clusters(ref, C_SIZE, sorted_mean=True)
-    q_c = (query - cl.ctr0).contiguous()
     if query.is_cuda:
-        d2, idx = nn_1_clustered_cuda(q_c, cl)
-    else:
-        d2, idx, _ = nn_1_clustered_plain(q_c, cl)
+        return nn_1_clustered_cuda(query.contiguous(), cl, remap=True)
+    d2, idx, _ = nn_1_clustered_plain((query - cl.ctr0).contiguous(), cl)
     return d2, cl.order[idx.long()].to(torch.int32)
 
 
@@ -302,16 +411,22 @@ def shortlist_tiles(q_c: torch.Tensor, cl: Clusters):
 def nn_1_shortlist_plain(q_c: torch.Tensor, cl: Clusters,
                          counts: torch.Tensor, ids: torch.Tensor):
     """Plain version on CENTRED queries: (d2 (N,) f32, idx (N,) int32 in
-    the SORTED numbering, visits (N,) int32 vertices its tile visited)."""
+    the SORTED numbering, visits (N,) int32 vertices its tile listed).
+    Each group of NN_GROUP queries walks its tile's list and skips a
+    cluster where none of its queries has ``lb <= best``."""
     n = q_c.shape[0]
     T, C, cs = ids.shape[0], ids.shape[1], cl.csize
-    q3 = torch.nn.functional.pad(q_c, (0, 0, 0, T * P_TILE - n)).reshape(
-        T, P_TILE, 3)
+    G = P_TILE // NN_GROUP                                     # groups a tile
+    dev = q_c.device
+    qg = torch.nn.functional.pad(q_c, (0, 0, 0, T * P_TILE - n)).reshape(
+        T * G, NN_GROUP, 3)
+    live = (torch.arange(T * P_TILE, device=dev) < n).reshape(T * G, NN_GROUP)
     vs_pad = cl.padded().reshape(C, cs, 3)
-    real = cl.rows[:, None] > torch.arange(cs, device=q_c.device)    # (C, cs)
-    best = torch.full((T, P_TILE), float("inf"), device=q_c.device)
-    best_i = torch.zeros((T, P_TILE), dtype=torch.int32, device=q_c.device)
-    visits = torch.zeros((T,), dtype=torch.int64, device=q_c.device)
+    real = cl.rows[:, None] > torch.arange(cs, device=dev)          # (C, cs)
+    shrink = _f32(1.0 - 1e-5, q_c)
+    best = torch.full((T * G, NN_GROUP), float("inf"), device=dev)
+    best_i = torch.zeros((T * G, NN_GROUP), dtype=torch.int32, device=dev)
+    visits = torch.zeros((T,), dtype=torch.int64, device=dev)
     step = max(1, PLAIN_CHUNK * 256 // (P_TILE * cs))    # tiles per step
     for s in range(C):
         for t0 in range(0, T, step):
@@ -319,47 +434,60 @@ def nn_1_shortlist_plain(q_c: torch.Tensor, cl: Clusters,
             if t.numel() == 0:
                 continue
             cid = ids[t, s].long()
-            v = vs_pad[cid]                                        # (t, cs, 3)
-            q = q3[t]
+            visits[t] += cl.rows[cid]
+            g = (t[:, None] * G + torch.arange(G, device=dev)).flatten()
+            cg = cid.repeat_interleave(G)                        # (g,)
+            q = qg[g]                                            # (g, P, 3)
+            c = cl.cent[cg]
+            dc = torch.sqrt(_sq3(q[..., 0] - c[:, None, 0], q[..., 1]
+                                 - c[:, None, 1], q[..., 2] - c[:, None, 2]))
+            m = torch.clamp(dc - cl.rad[cg][:, None], min=0.0) * shrink
+            keep = ((m * m <= best[g]) & live[g]).any(dim=1)
+            g, cg = g[keep], cg[keep]
+            if g.numel() == 0:
+                continue
+            v, q = vs_pad[cg], qg[g]                             # (g, cs, 3)
             d2 = _sq3(v[:, None, :, 0] - q[..., 0:1], v[:, None, :, 1]
                       - q[..., 1:2], v[:, None, :, 2] - q[..., 2:3])
-            d2 = torch.where(real[cid][:, None], d2,
+            d2 = torch.where(real[cg][:, None], d2,
                              torch.full_like(d2, float("inf")))
-            m, j = torch.min(d2, dim=2)
-            upd = m < best[t]
-            best[t] = torch.where(upd, m, best[t])
-            best_i[t] = torch.where(upd, (j + cid[:, None] * cs).to(torch.int32),
-                                    best_i[t])
-            visits[t] += cl.rows[cid]
+            mn, j = torch.min(d2, dim=2)
+            upd = mn < best[g]
+            best[g] = torch.where(upd, mn, best[g])
+            best_i[g] = torch.where(upd, (j + cg[:, None] * cs).to(torch.int32),
+                                    best_i[g])
     per_q = visits.repeat_interleave(P_TILE)[:n].to(torch.int32)
     return best.reshape(-1)[:n], best_i.reshape(-1)[:n], per_q
 
 
-def nn_1_shortlist_cuda(q_c: torch.Tensor, cl: Clusters, counts: torch.Tensor,
-                        ids: torch.Tensor):
-    """CUDA kernel on CENTRED queries -> (d2, idx in the SORTED numbering);
-    one block per tile reads its visit count and ids from device memory.
-    Counts its launch."""
-    dev = q_c.device
-    _cuda.require(q_c, "query", torch.float32, (None, 3), dev)
-    _require_clusters(cl, dev)
-    n, nv, nc = q_c.shape[0], cl.vs.shape[0], cl.cent.shape[0]
-    T = -(-n // P_TILE)
-    _cuda.require(counts, "counts", torch.int32, (T,), dev)
-    _cuda.require(ids, "ids", torch.int32, (T, nc), dev)
-    lib = _cuda.library()
-    if cl.csize > lib.sherf_knn_max_vertices():
-        raise ValueError(f"nn_1_shortlist: clusters of {cl.csize} exceed the "
-                         f"shared-memory capacity")
-    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n:
-        _cuda.check(lib.sherf_nn1_shortlist(
-            q_c.data_ptr(), n, cl.vs.data_ptr(), nv, counts.data_ptr(),
-            ids.data_ptr(), nc, cl.csize, P_TILE, d2.data_ptr(),
-            idx.data_ptr(), _cuda.stream_of(q_c)), "nn_1_shortlist")
-        _cuda.LAUNCHES["nn_1_shortlist"] += 1
-    return d2, idx
+def nn_1_shortlist_cuda(query: torch.Tensor, cl: Clusters, remap: bool = False,
+                        lists: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """CUDA kernel on RAW queries (it subtracts ``cl.ctr0``) -> (d2, idx in
+    the SORTED numbering, or the original one with ``remap``, overflow ()
+    int32 0).  Each tile's list is built in the kernel; ``lists`` = (counts
+    (T,), ids (T, C)) int32 receives it, as :func:`shortlist_tiles` gives
+    it.  Counts its launch."""
+    lib, n, nv, nc, d2, idx, scratch, order = _nn_launch_args(
+        query, cl, remap, "nn_1_shortlist")
+    if nc > MAX_LISTED:
+        raise ValueError(f"nn_1_shortlist: {nc} clusters, a tile ranks at "
+                         f"most {MAX_LISTED}")
+    counts_p = ids_p = None
+    if lists is not None:
+        T = -(-n // P_TILE)
+        _cuda.require(lists[0], "counts", torch.int32, (T,), query.device)
+        _cuda.require(lists[1], "ids", torch.int32, (T, nc), query.device)
+        counts_p, ids_p = lists[0].data_ptr(), lists[1].data_ptr()
+    if not n:
+        return d2, idx, torch.zeros((), dtype=torch.int32, device=query.device)
+    _cuda.check(lib.sherf_nn1_shortlist(
+        query.data_ptr(), n, cl.ctr0.data_ptr(), cl.vs.data_ptr(), nv,
+        cl.cent.data_ptr(), cl.rad.data_ptr(), nc, cl.csize, order,
+        d2.data_ptr(), idx.data_ptr(), counts_p, ids_p, scratch.data_ptr(),
+        _cuda.stream_of(query)), "nn_1_shortlist")
+    _cuda.LAUNCHES["nn_1_shortlist"] += 1
+    # the call's memset zeroed both scratch words; the kernel uses the first
+    return d2, idx, scratch[1]
 
 
 @torch.no_grad()
@@ -373,12 +501,11 @@ def nn_1_shortlist(query: torch.Tensor, ref: torch.Tensor, s_cap: int = 0):
     del s_cap
     _check_points(query, ref)
     cl = make_clusters(ref, SL_CSIZE, sorted_mean=False)
+    if query.is_cuda:
+        return nn_1_shortlist_cuda(query.contiguous(), cl, remap=True)
     q_c = (query - cl.ctr0).contiguous()
     counts, ids, _, _ = shortlist_tiles(q_c, cl)
-    if query.is_cuda:
-        d2, idx = nn_1_shortlist_cuda(q_c, cl, counts, ids)
-    else:
-        d2, idx, _ = nn_1_shortlist_plain(q_c, cl, counts, ids)
+    d2, idx, _ = nn_1_shortlist_plain(q_c, cl, counts, ids)
     return (d2, cl.order[idx.long()].to(torch.int32),
             torch.zeros((), dtype=torch.int32, device=query.device))
 
@@ -422,7 +549,7 @@ def ray_body_mask_clustered_plain(o_c: torch.Tensor, d: torch.Tensor,
         for c in range(C):
             want = ~h & (lb[:, c] < thr)
             vis += torch.where(want, rows[c], 0).to(torch.int32)
-            sel = torch.nonzero(_group_any(want)).flatten()
+            sel = torch.nonzero(_group_any(want, WARP)).flatten()
             if sel.numel() == 0:
                 continue
             j0 = c * cl.csize

@@ -541,8 +541,80 @@ def _cluster_queries(kind, verts, rng, n):
     return q.astype(np.float32)
 
 
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _clustered_nn_bit_equal(dev, q, verts):
+    """B5 and B6 on the card against their plain versions on the same
+    (kernel-made) Clusters: idx equal, d2 bit-equal, B6's tile lists equal
+    to shortlist_tiles; both on raw queries and with the remap."""
+    qt, vt = torch.from_numpy(q).to(dev), torch.from_numpy(verts).to(dev)
+    n = len(q)
+    cl = knn_cluster.make_clusters(vt, knn_cluster.C_SIZE, sorted_mean=True)
+    q_c = (qt - cl.ctr0).contiguous()
+    before = dict(knn._cuda.LAUNCHES)
+    d2k, ik = knn_cluster.nn_1_clustered_cuda(qt, cl)
+    d2p, ip, _ = knn_cluster.nn_1_clustered_plain(q_c, cl)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip) and torch.equal(_bits(d2k), _bits(d2p))
+    assert knn._cuda.LAUNCHES["nn_1_clustered"] == before["nn_1_clustered"] + (n > 0)
+    d2r, ir = knn_cluster.nn_1_clustered_cuda(qt, cl, remap=True)
+    assert torch.equal(_bits(d2r), _bits(d2k))
+    assert torch.equal(ir.long(), cl.order[ik.long()])
+
+    sl = knn_cluster.make_clusters(vt, knn_cluster.SL_CSIZE, sorted_mean=False)
+    q_s = (qt - sl.ctr0).contiguous()
+    counts, ids, _, _ = knn_cluster.shortlist_tiles(q_s, sl)
+    lists = (torch.full_like(counts, -1), torch.full_like(ids, -1))
+    d2k, ik, over = knn_cluster.nn_1_shortlist_cuda(qt, sl, lists=lists)
+    d2p, ip, _ = knn_cluster.nn_1_shortlist_plain(q_s, sl, counts, ids)
+    torch.cuda.synchronize()
+    assert int(over) == 0 and over.shape == ()
+    assert torch.equal(lists[0], counts) and torch.equal(lists[1], ids)
+    assert torch.equal(ik, ip) and torch.equal(_bits(d2k), _bits(d2p))
+    return qt, vt
+
+
+def test_clustered_kernels_grain_matches_plain(dev):
+    lib = knn._cuda.library()
+    assert lib.sherf_nn1_cluster_unit() == knn_cluster.NN_GROUP
+    assert lib.sherf_nn1_shortlist_tile() == knn_cluster.P_TILE
+
+
+@pytest.mark.parametrize("sorted_mean", [True, False])
+@pytest.mark.parametrize("csize", [128, 256])
+@pytest.mark.parametrize("v", [1, 33, 1000, 5037, "smpl", "dupes", 16384])
+def test_cluster_prep_bit_equals_plain(dev, v, csize, sorted_mean):
+    """The prep kernel's Clusters equal make_clusters_plain's bit for bit:
+    the stable Morton order (equal codes in ascending vertex order), the
+    sorted centred rows, the f64-summed centre and centroids, the radii."""
+    rng = np.random.RandomState(11)
+    if v == "smpl":
+        verts = _smpl_body(3)
+    elif v == "dupes":                     # many equal Morton codes
+        verts = _verts(rng, 3000)
+        verts[1000:2000] = verts[rng.randint(0, 1000, 1000)]
+        verts = np.round(verts * 20) / 20
+    else:
+        verts = _verts(rng, v)
+    vt = torch.from_numpy(verts.astype(np.float32)).to(dev)
+    before = knn._cuda.LAUNCHES["cluster_prep"]
+    ck = knn_cluster.make_clusters_cuda(vt, csize, sorted_mean)
+    cp = knn_cluster.make_clusters_plain(vt, csize, sorted_mean)
+    torch.cuda.synchronize()
+    assert knn._cuda.LAUNCHES["cluster_prep"] == before + 1
+    for f in ("order", "vs", "ctr0", "cent", "rad"):
+        a, b = getattr(ck, f), getattr(cp, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(_bits(a), _bits(b)), f
+    assert torch.equal(ck.order.sort().values,
+                       torch.arange(vt.shape[0], device=dev))
+
+
 @pytest.mark.parametrize("body", ["random", "smpl"])
-@pytest.mark.parametrize("n,qkind", [(0, "near"), (1, "near"), (1000, "near"),
+@pytest.mark.parametrize("n,qkind", [(0, "near"), (1, "near"), (129, "near"),
+                                     (513, "near"), (1000, "near"),
                                      (70_001, "near"), (3000, "far")])
 def test_clustered_nn_kernels_bit_equal_plain(dev, body, n, qkind):
     """nn_1_clustered and nn_1_shortlist: kernel == plain version (idx
@@ -551,23 +623,7 @@ def test_clustered_nn_kernels_bit_equal_plain(dev, body, n, qkind):
     rng = np.random.RandomState(n + len(body))
     verts = _cluster_body(body, rng)
     q = _cluster_queries(qkind, verts, rng, n)
-    qt, vt = torch.from_numpy(q).to(dev), torch.from_numpy(verts).to(dev)
-    cl = knn_cluster.make_clusters(vt, knn_cluster.C_SIZE, sorted_mean=True)
-    q_c = (qt - cl.ctr0).contiguous()
-    before = dict(knn._cuda.LAUNCHES)
-    d2k, ik = knn_cluster.nn_1_clustered_cuda(q_c, cl)
-    d2p, ip, _ = knn_cluster.nn_1_clustered_plain(q_c, cl)
-    torch.cuda.synchronize()
-    assert torch.equal(ik, ip) and torch.equal(d2k, d2p)
-    assert knn._cuda.LAUNCHES["nn_1_clustered"] == before["nn_1_clustered"] + (n > 0)
-
-    sl = knn_cluster.make_clusters(vt, knn_cluster.SL_CSIZE, sorted_mean=False)
-    q_s = (qt - sl.ctr0).contiguous()
-    counts, ids, _, _ = knn_cluster.shortlist_tiles(q_s, sl)
-    d2k, ik = knn_cluster.nn_1_shortlist_cuda(q_s, sl, counts, ids)
-    d2p, ip, _ = knn_cluster.nn_1_shortlist_plain(q_s, sl, counts, ids)
-    torch.cuda.synchronize()
-    assert torch.equal(ik, ip) and torch.equal(d2k, d2p)
+    qt, vt = _clustered_nn_bit_equal(dev, q, verts)
     # the full scan's minimum distance, through the public wrappers
     d_full, _ = knn.nn_1(qt, vt)
     for wrap in (knn_cluster.nn_1_clustered,
@@ -579,6 +635,93 @@ def test_clustered_nn_kernels_bit_equal_plain(dev, body, n, qkind):
         d_at = ((qt.double() - vt.double()[idx.long()]) ** 2).sum(-1)
         d64 = torch.cdist(qt.double(), vt.double()).pow(2).amin(1) if n else d_at
         assert torch.allclose(d_at, d64, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("park", ["far", "body"])
+@pytest.mark.parametrize("runs", ["all", "tail_13", "across_tile",
+                                  "across_unit", "alternate"])
+def test_clustered_nn_kernels_identical_queries(dev, runs, park):
+    """Runs of bit-identical queries, which the kernels scan cooperatively
+    where a whole unit of 128 is one point: every query one point; a tail
+    from an odd offset (the budgets' padding); one run across the shortlist
+    tile boundary at 512; one across a unit boundary only; runs of 64.
+    Kernel == plain version on each."""
+    rng = np.random.RandomState(5)
+    verts = _smpl_body(7)
+    n = 4000
+    q = _cluster_queries("near", verts, rng, n)
+    point = (np.asarray([5.0, 9.0, -3.0], np.float32) if park == "far"
+             else verts[1234] + 0.01)
+    if runs == "all":
+        q[:] = point
+    elif runs == "tail_13":
+        q[1000 + 13:] = point
+    elif runs == "across_tile":
+        q[448:640] = point
+    elif runs == "across_unit":
+        q[64:192] = point
+    else:
+        for s in range(0, n, 128):
+            q[s:s + 64] = q[s]
+    _clustered_nn_bit_equal(dev, q, verts)
+
+
+@pytest.mark.parametrize("where", ["duplicate", "mirrored"])
+def test_clustered_nn_kernels_ties_in_cooperative_scan(dev, where):
+    """Ties inside a cooperative scan go to the first row in visit order,
+    as the sequential scan (strict '<') takes them: two duplicate vertices
+    (adjacent rows), or three vertices 1/256 m from the query along +x, -x
+    and +z (exact in f32 on a 1/1024 grid: the same d2, in other rows and
+    clusters).  Every query of most units is that one point."""
+    rng = np.random.RandomState(9)
+    verts = np.round(_verts(rng, 3000) * 1024) / 1024
+    p = verts[17].copy()
+    if where == "duplicate":
+        verts[18] = p
+    else:
+        e = np.float32(1 / 256)
+        verts[17] = p + [0, 0, e]
+        verts[100] = p + [e, 0, 0]
+        verts[2900] = p - [e, 0, 0]
+    verts = verts.astype(np.float32)
+    for point in (p, p + np.float32(1e-3)):
+        q = np.tile(point[None], (600, 1)).astype(np.float32)
+        q[:100] += rng.randn(100, 3).astype(np.float32) * 0.01  # a mixed unit
+        _clustered_nn_bit_equal(dev, q, verts)
+
+
+def _device_ops(fn, reps=10):
+    """Kernels, memsets and copies a call of fn issues (profiler; the first
+    window is a warm-up, the second is read)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    ev = [e for e in prof.key_averages()
+          if e.device_type != torch.autograd.DeviceType.CPU]
+    return sum(e.count for e in ev) / reps
+
+
+def test_clustered_wrappers_device_ops(dev):
+    """Each public clustered wrapper is at most 4 device operations a call:
+    the prep kernel, a memset and the kernel (B5, B6), or the prep, the
+    origins' centring and the kernel (B7)."""
+    rng = np.random.RandomState(4)
+    verts = torch.from_numpy(_smpl_body(2)).to(dev)
+    q = torch.from_numpy(_cluster_queries("near", verts.cpu().numpy(), rng,
+                                          20_000)).to(dev)
+    d = (q - verts[:1]).contiguous()
+    for call in (lambda: knn_cluster.nn_1_clustered(q, verts),
+                 lambda: knn_cluster.nn_1_shortlist(q, verts),
+                 lambda: knn_cluster.ray_body_mask_clustered(q, d, verts,
+                                                             0.05 ** 2)):
+        assert round(_device_ops(call)) == 3
 
 
 @pytest.mark.parametrize("body", ["random", "smpl"])
@@ -619,19 +762,26 @@ def test_clustered_wrappers_count_and_reject(dev):
             ("nn_1_shortlist", lambda: knn_cluster.nn_1_shortlist(q, verts)),
             ("ray_body_mask_clustered", lambda: knn_cluster.ray_body_mask_clustered(
                 q, q - verts[:100].mean(0), verts, 0.05 ** 2))):
-        before = knn._cuda.LAUNCHES[key]
+        before = dict(knn._cuda.LAUNCHES)
         call()
-        assert knn._cuda.LAUNCHES[key] == before + 1
+        assert knn._cuda.LAUNCHES[key] == before[key] + 1
+        assert knn._cuda.LAUNCHES["cluster_prep"] == before["cluster_prep"] + 1
     cl = knn_cluster.make_clusters(verts, knn_cluster.C_SIZE, sorted_mean=True)
-    cpu_q = (q - cl.ctr0).cpu()
+    cpu_q = q.cpu()
     with pytest.raises(ValueError):        # a CPU tensor never falls back
         knn_cluster.nn_1_clustered_cuda(cpu_q, cl)
     with pytest.raises(ValueError):
         knn_cluster.ray_body_mask_clustered_cuda(cpu_q, cpu_q, cl, 0.01)
+    with pytest.raises(ValueError):
+        knn_cluster.make_clusters_cuda(verts.cpu(), 128, True)
+    with pytest.raises(ValueError):        # beyond the prep's sort
+        knn_cluster.make_clusters_cuda(verts.new_zeros((16385, 3)), 128, True)
     sl = knn_cluster.make_clusters(verts, knn_cluster.SL_CSIZE, sorted_mean=False)
     counts, ids, _, _ = knn_cluster.shortlist_tiles((q - sl.ctr0).contiguous(), sl)
     with pytest.raises(ValueError):
-        knn_cluster.nn_1_shortlist_cuda(cpu_q, sl, counts, ids)
+        knn_cluster.nn_1_shortlist_cuda(cpu_q, sl)
     with pytest.raises(TypeError):
-        knn_cluster.nn_1_shortlist_cuda((q - sl.ctr0).contiguous(), sl,
-                                        counts.long(), ids)
+        knn_cluster.nn_1_shortlist_cuda(q, sl, lists=(counts.long(), ids))
+    with pytest.raises(ValueError):        # more clusters than a tile ranks
+        knn_cluster.nn_1_shortlist_cuda(q, knn_cluster.make_clusters(
+            verts, 64, sorted_mean=False))

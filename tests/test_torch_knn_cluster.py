@@ -21,6 +21,7 @@ Two levels of comparison:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -167,6 +168,32 @@ def test_morton_order_and_cluster_stats_match_jax(case):
     assert bool((ct[2:] == kc.SENTINEL).all()) and bool((ct[:2] < 10).all())
 
 
+def test_lane_sum_is_the_prep_kernels_order():
+    """The fixed-order f64 sums of the plain prep: lane l adds rows l, l +
+    lanes, ... in turn, then lane l + h onto lane l, halving (the prep
+    kernel's order), emulated here with Python floats; the centre is that
+    sum over V rounded once, within an ulp of the exact mean."""
+    rng = np.random.RandomState(13)
+    x = (rng.randn(3000, 3) * [0.3, 0.6, 0.15] + [0.1, 0.2, 2.0]).astype(np.float32)
+    for lanes in (kc.CLUSTER_LANES, kc.PREP_LANES):
+        acc = [[0.0] * 3 for _ in range(lanes)]
+        for r in range(len(x)):
+            for d in range(3):
+                acc[r % lanes][d] += float(x[r, d])
+        h = lanes // 2
+        while h:
+            for l in range(h):
+                for d in range(3):
+                    acc[l][d] += acc[l + h][d]
+            h //= 2
+        got = kc._lane_sum(T(x), lanes)
+        assert got.dtype == torch.float64
+        assert got.tolist() == acc[0]
+    cl = kc.make_clusters_plain(T(x), kc.C_SIZE, sorted_mean=False)
+    exact = np.array([math.fsum(map(float, x[:, d])) / len(x) for d in range(3)])
+    assert (_ulps(cl.ctr0.numpy(), exact.astype(np.float32)) <= 1).all()
+
+
 @pytest.mark.parametrize("case", ["coherent", "incoherent", "smpl"])
 def test_shortlist_tiles_match_jax(case, pallas_inputs):
     """counts and lb-sorted ids per 512-query tile equal the Pallas
@@ -264,6 +291,75 @@ def test_nn_1_shortlist_matches_pallas_kernel(case, pallas_inputs):
     d64 = ((q64[:, None] - v64[None]) ** 2).sum(-1).min(1)
     d_at = ((q64 - v64[idx_t.numpy()]) ** 2).sum(-1)
     np.testing.assert_allclose(d_at, d64, rtol=1e-5, atol=1e-7)
+
+
+def _list_scan(q_c, cl, counts, ids):
+    """B6 without the skip: every tile scans each listed cluster in list
+    order, every query, strict '<' (the Pallas kernel's rule)."""
+    n, cs, nv = q_c.shape[0], cl.csize, cl.vs.shape[0]
+    d2 = torch.full((n,), float("inf"))
+    idx = torch.zeros((n,), dtype=torch.int32)
+    for t in range(ids.shape[0]):
+        sl = slice(t * kc.P_TILE, min(n, (t + 1) * kc.P_TILE))
+        for s in range(int(counts[t])):
+            j0 = int(ids[t, s]) * cs
+            m, j = kc._scan(q_c[sl], cl.vs[j0:min(j0 + cs, nv)])
+            upd = m < d2[sl]
+            d2[sl] = torch.where(upd, m, d2[sl])
+            idx[sl] = torch.where(upd, (j + j0).to(torch.int32), idx[sl])
+    return d2, idx
+
+
+@pytest.mark.parametrize("park", ["body", "far_padding"])
+def test_shortlist_skip_rule_keeps_the_list_scan_result(park):
+    """The plain B6's per-group skip (a cluster none of the group's queries
+    can lower or tie, by its f32 bound with the (1 - 1e-5) shrink) gives
+    the d2 and idx of the unskipped list scan, on an SMPL-sized body and
+    with the budgets' padding parked 1e6 m away (where f32 rounding of the
+    bound is largest); the list holds more pairs than the result needs."""
+    q, v = _smpl_body()
+    if park == "far_padding":
+        q[1300:] = np.float32([6e5, 8e5, 3.0])
+    cl = kc.make_clusters(T(v), kc.SL_CSIZE, sorted_mean=False)
+    q_c = (T(q) - cl.ctr0).contiguous()
+    counts, ids, _, _ = kc.shortlist_tiles(q_c, cl)
+    d2, idx, listed = kc.nn_1_shortlist_plain(q_c, cl, counts, ids)
+    d2_r, idx_r = _list_scan(q_c, cl, counts, ids)
+    assert torch.equal(idx, idx_r)
+    assert torch.equal(d2.view(torch.int32), d2_r.view(torch.int32))
+    assert kc.needed_pairs(q_c, cl, d2) < int(listed.sum())
+
+
+def test_needed_pairs_matches_brute_force():
+    """needed_pairs: each run of bit-identical queries once, the rows of
+    every cluster whose f64 lower bound max(|q - c| - r, 0)^2 is <= the
+    query's d2, against a loop over queries and clusters in numpy f64."""
+    rng = np.random.RandomState(21)
+    v = (rng.randn(700, 3) * 0.4).astype(np.float32)
+    q = np.concatenate([v[rng.randint(0, 700, 300)] + rng.randn(300, 3) * 0.05,
+                        rng.uniform(-1.5, 1.5, (100, 3))]).astype(np.float32)
+    q[40:90] = q[40]                     # runs of identical queries
+    q[200:260] = q[199]
+    q[380:] = np.float32([1e6, 0.0, 0.0])
+    cl = kc.make_clusters(T(v), 64, sorted_mean=True)
+    q_c = (T(q) - cl.ctr0).contiguous()
+    d2, _, _ = kc.nn_1_clustered_plain(q_c, cl)
+    qn, dn = q_c.numpy().astype(np.float64), d2.numpy().astype(np.float64)
+    cent, rad = cl.cent.numpy().astype(np.float64), cl.rad.numpy().astype(np.float64)
+    rows = cl.rows.numpy()
+    want, distinct = 0, 0
+    for i in range(len(q)):
+        if i and (q_c[i].numpy().view(np.int32) == q_c[i - 1].numpy().view(np.int32)).all():
+            continue
+        distinct += 1
+        for c in range(len(cent)):
+            lb = max(np.sqrt(((qn[i] - cent[c]) ** 2).sum()) - rad[c], 0.0) ** 2
+            want += rows[c] if lb <= dn[i] else 0
+    assert int(kc.run_starts(q_c).sum()) == distinct == 400 - 49 - 60 - 19
+    assert kc.needed_pairs(q_c, cl, d2) == want
+    # the nearest vertex's own cluster is always needed: at least one
+    # cluster's rows per distinct query
+    assert want >= distinct * int(rows.min())
 
 
 # ---- B7 ----------------------------------------------------------------------
