@@ -31,7 +31,8 @@ and compactions equal; squared distances bit-equal; the cluster prep's
 order, rows, centre, centroids and radii bit-equal; nn_1_shortlist's tile
 lists equal; the table gradient within the f32 reassociation bound of the
 same products summed in f64), that each public clustered wrapper issues
-at most 4 device operations a call (profiler), that
+at most 3 device operations a call (profiler; B7 on the frame's strided
+rays), that
 each clustered call agrees with the full-scan kernel on the same inputs,
 that every frame is finite with every budget-overflow counter at zero and
 the clustered frames within 45 dB of the default frame, that the train
@@ -50,6 +51,7 @@ only.
 
 import faulthandler
 import json
+import math
 import os
 import shutil
 import statistics
@@ -65,7 +67,7 @@ PORT_KERNELS = {"nn_1": ("nn1_kernel",),
                 "weighted_accumulate": ("wa_kernel",),
                 "nn_1_clustered": ("nn1_cluster_kernel",),
                 "nn_1_shortlist": ("nn1_shortlist_kernel",),
-                "ray_body_mask_clustered": ("ray_cluster_kernel",),
+                "ray_body_mask_clustered": ("ray_mask_cluster_kernel",),
                 "cluster_prep": ("cluster_prep_kernel",)}
 NONE = dict.fromkeys(PORT_KERNELS, 0)
 # launches per frame at batch 1: point + canonical KNN, one ray mask, ray /
@@ -77,8 +79,9 @@ CLUSTER_LAUNCHES = {**NONE, "nn_1_clustered": 2, "ray_body_mask_clustered": 1,
 SHORTLIST_LAUNCHES = {**NONE, "nn_1_shortlist": 2,
                       "ray_body_mask_clustered": 1, "cluster_prep": 3,
                       "compact_mask": 6}
-# device operations (kernels and memsets) a clustered wrapper may issue
-CLUSTER_WRAPPER_OPS = 4
+# device operations (kernels and memsets) a clustered wrapper may issue: the
+# prep, a memset and its kernel
+CLUSTER_WRAPPER_OPS = 3
 # per train step: the frame's kernels + 3 readout scales (weighted_accumulate)
 TRAIN_LAUNCHES = {**FRAME_LAUNCHES, "weighted_accumulate": 3}
 KNN_SHORTLIST = 8        # any value > 0 switches the shortlist on
@@ -102,6 +105,13 @@ RBM_OPS_PER_PAIR = 17    # 3 sub, 3+3 mul, 2+2 add (a, b), 2 mul, 1 sub, 1 min
 # ... of which w = v - o and a = |w|^2 (3 sub, 3 mul, 2 add) depend on the
 # ray's origin only: rays that share an origin share them
 RBM_OPS_PER_ORIGIN = 8
+# ray_body_mask_clustered's quick rejection of a (ray, cluster) is a pair's
+# 17 operations against the centroid (8 of them the origin's); a (ray,
+# cluster) that passes it takes the square-root test: clamp, sqrt, mul,
+# sub, clamp, mul, compare
+RBMC_EXACT_OPS = 7
+# the quick rejection's margin (kRejectGrow in csrc/knn_cluster.cu)
+RBMC_REJECT_GROW = 1.001
 # queries farther than this from the vertex centroid are the padding that
 # ray compaction parks at 1e6 m: f32 cluster bounds at that distance are
 # looser than a body's size, so the full-scan comparison leaves them out
@@ -163,6 +173,67 @@ def coop_queries(q_c, tile, torch):
     per_tile = torch.full_like(same, tile, dtype=torch.int64)
     per_tile[-1] = tile - pad
     return int((per_tile * same).sum())
+
+
+def warp_union_pairs(o_c, d, cl, thr, torch):
+    """The (ray, vertex) pairs the first ray_body_mask_clustered kernel
+    (one ray a thread) scanned, from the plain version's bound table: a
+    warp of 32 consecutive rays entered cluster c where any of its rays had
+    not hit and had lb < thr, and each of its rays that had not hit scanned
+    the rows up to its first hit (all of them where none hit).  Returns
+    (pairs, lane_slots): lane_slots counts 32 lanes for each row the
+    warp's slowest lane scanned."""
+    from sherf_tpu_torch.kernels import knn_cluster
+    dd_inv, lb = knn_cluster.ray_cluster_bounds(o_c, d, cl)
+    n, C = lb.shape
+    t = torch.tensor(thr, dtype=torch.float32, device=o_c.device)
+    rows = cl.rows
+    hit = torch.zeros(n, dtype=torch.bool, device=o_c.device)
+    pairs = slots = 0
+    for c in range(C):
+        want = ~hit & (lb[:, c] < t)
+        warp_in = torch.nn.functional.pad(want, (0, -n % 32)).reshape(
+            -1, 32).any(dim=1).repeat_interleave(32)[:n]
+        sel = torch.nonzero(warp_in & ~hit).flatten()
+        if sel.numel() == 0:
+            continue
+        j0 = c * cl.csize
+        below = knn_cluster._line_terms(o_c[sel], d[sel], dd_inv[sel],
+                                        cl.vs[j0:j0 + cl.csize]) < t
+        any_b = below.any(dim=1)
+        scanned = torch.where(any_b, below.int().argmax(dim=1) + 1, rows[c])
+        pairs += int(scanned.sum())
+        per_warp = torch.zeros(-(-n // 32), dtype=torch.int64,
+                               device=o_c.device).scatter_reduce(
+            0, sel // 32, scanned.long(), reduce="amax")
+        slots += 32 * int(per_warp.sum())
+        hit[sel] |= any_b
+    return pairs, slots
+
+
+def near_pairs(o_c, d, cl, thr, torch):
+    """The (ray, cluster) pairs that pass ray_body_mask_clustered's quick
+    rejection, dl2 < ((sqrt(thr) + r_c) 1.001)^2 in the kernel's f32
+    operations, and so take its square-root test."""
+    from sherf_tpu_torch.kernels import knn_cluster
+    f32 = torch.float32
+    dd_inv, _ = knn_cluster.ray_cluster_bounds(o_c, d, cl)
+    dl2 = knn_cluster._line_terms(o_c, d, dd_inv, cl.cent)
+    root = math.sqrt(float(torch.tensor(thr, dtype=f32)))
+    rj = ((torch.tensor(root, dtype=f32, device=o_c.device) + cl.rad)
+          * torch.tensor(RBMC_REJECT_GROW, dtype=f32, device=o_c.device))
+    return int((dl2 < rj * rj).sum())
+
+
+def rbmc_ops(n, nv, nc, pairs, origins, near):
+    """The f32 operations ray_body_mask_clustered needs: each (ray, cluster)
+    quick rejection and each admitted (ray, vertex) pair at 9, with w and a
+    (8) once per origin and centroid or vertex, and the square-root test of
+    the ``near`` pairs that pass the rejection."""
+    shared = RBM_OPS_PER_PAIR - RBM_OPS_PER_ORIGIN
+    return (shared * pairs + RBM_OPS_PER_ORIGIN * min(origins * nv, pairs)
+            + shared * n * nc + RBM_OPS_PER_ORIGIN * min(origins, n) * nc
+            + RBMC_EXACT_OPS * near)
 
 
 def profiled(fn, torch, expect):
@@ -273,6 +344,7 @@ def main():
                                              RenderConfig, TrainConfig)
     from sherf_tpu_torch.core.diag import overflow_report
     from sherf_tpu_torch.data.synthetic import make_synthetic_batch
+    from sherf_tpu_torch.device_ops import device_work
     from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
     from sherf_tpu_torch.kernels import (_cuda, compaction, knn, knn_cluster,
                                          segment_accum)
@@ -666,31 +738,6 @@ def main():
         cases.append({"kernel": "compact_mask", "call": i, "n": m.shape[0],
                       "cap": cap, "survivors": int(m.sum()), "equal": True})
 
-    def device_work(fn, reps=20):
-        """The device work of one call of ``fn``, from the profiler: per
-        call, the device operations (kernels, memsets, copies) by name,
-        each with its count and ms (no launch gaps), and their total
-        count.  The profiler's first window is a warm-up (it can miss the
-        first call's events) and only the second is read."""
-        from torch.profiler import ProfilerActivity, profile, schedule
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        ev = [e for e in prof.key_averages()
-              if e.device_type != torch.autograd.DeviceType.CPU]
-        ops = {e.key: {"per_call": e.count / reps,
-                       "ms": e.self_device_time_total / 1e3 / reps}
-               for e in ev}
-        return {"ops": ops,
-                "ops_per_call": sum(o["per_call"] for o in ops.values())}
-
     def per_launch(fn):
         """compact_mask's kernel and memset ms and counts a call; fails
         unless a call is one kernel and one memset (to the nearest whole
@@ -881,6 +928,12 @@ def main():
             "ray_body_mask_clustered": (
                 rec_cluster["cluster_frame"]["ray_body_mask_clustered"]
                 + rec_cluster["shortlist_frame"]["ray_body_mask_clustered"])}
+
+    def kernel_ms(fn, key):
+        """Device ms of the ``key`` kernel in a call of ``fn`` (profiler)."""
+        return sum(o["ms"] for name, o in device_work(fn)["ops"].items()
+                   if PORT_KERNELS[key][0] in name)
+
     prep = {}
     for i, (query, ref) in enumerate(clus["nn_1_clustered"]):
         cl = checked_prep("nn_1_clustered", i, ref, knn_cluster.C_SIZE, True)
@@ -900,6 +953,9 @@ def main():
                       "n": query.shape[0], "v": ref.shape[0], "equal": True,
                       "prep_equal": True, "pairs_admitted": int(visits.sum()),
                       "pairs_needed": knn_cluster.needed_pairs(q_c, cl, d2k),
+                      "kernel_device_ms": kernel_ms(
+                          lambda: knn_cluster.nn_1_clustered_cuda(query, cl),
+                          "nn_1_clustered"),
                       **full})
     for i, (query, ref, _) in enumerate(clus["nn_1_shortlist"]):
         cl = checked_prep("nn_1_shortlist", i, ref, knn_cluster.SL_CSIZE,
@@ -929,18 +985,22 @@ def main():
                       "pairs_admitted": int(visits.sum()),
                       "pairs_needed": knn_cluster.needed_pairs(q_c, cl, d2k),
                       "clusters_per_tile_mean": float(counts.float().mean()),
+                      "kernel_device_ms": kernel_ms(
+                          lambda: knn_cluster.nn_1_shortlist_cuda(query, cl),
+                          "nn_1_shortlist"),
                       **full})
+    # B7: the kernel on the frame's raw strided views, as the wrapper
+    # passes them; the plain version on the centred copy
     for i, (ray_o, ray_d, verts, thr) in enumerate(
             clus["ray_body_mask_clustered"]):
         cl = checked_prep("ray_body_mask_clustered", i, verts,
                           knn_cluster.C_SIZE, True)
         o_c = (ray_o - cl.ctr0).contiguous()
-        ray_d = ray_d.contiguous()
-        mk = knn_cluster.ray_body_mask_clustered_cuda(o_c, ray_d, cl, thr)
+        mk = knn_cluster.ray_body_mask_clustered_cuda(ray_o, ray_d, cl, thr)
         mp, visits = knn_cluster.ray_body_mask_clustered_plain(o_c, ray_d, cl,
                                                                thr)
         o_f, v_f = knn._centre(ray_o, verts)
-        mf = knn.ray_body_mask_cuda(o_f, ray_d, v_f, thr)
+        mf = knn.ray_body_mask_cuda(o_f, ray_d.contiguous(), v_f, thr)
         torch.cuda.synchronize()
         note_err("ray_body_mask_clustered", mk, mp)
         check(torch.equal(mk, mp), f"ray_body_mask_clustered call {i}: masks "
@@ -959,8 +1019,13 @@ def main():
                         (ray_o, ray_d, verts, thr, cl, o_c, visits))
         cases.append({"kernel": "ray_body_mask_clustered", "call": i,
                       "n": ray_o.shape[0], "equal": True, "prep_equal": True,
+                      "strides": [list(ray_o.stride()), list(ray_d.stride())],
                       "full_scan_borderline_flips": off.numel(),
-                      "pairs": int(visits.sum()), "hits": int(mk.sum())})
+                      "pairs": int(visits.sum()), "hits": int(mk.sum()),
+                      "kernel_device_ms": kernel_ms(
+                          lambda: knn_cluster.ray_body_mask_clustered_cuda(
+                              ray_o, ray_d, cl, thr),
+                          "ray_body_mask_clustered")})
 
     def cdist_min(q, v):
         def run():
@@ -1061,12 +1126,38 @@ def main():
         "coop_queries": coop_queries(q_c, knn_cluster.NN_GROUP, torch),
         "pairs_share": admitted / (n * nv)})
 
+    # B7: the bound counts what these rays need at the kernel's grain
+    # (rbmc_ops; all_pairs_bound_ms: every admitted pair at 17, the count of
+    # PRs 6-9)
     ray_o, ray_d, verts, thr, cl, o_c, visits = prep["ray_body_mask_clustered"]
     n, nv, nc = ray_o.shape[0], verts.shape[0], cl.cent.shape[0]
     o_f, v_f = knn._centre(ray_o, verts)
+    d_full = ray_d.contiguous()
     act = recorded["ray_body_mask"][0][4]       # the default frame's AABB mask
     pairs = int(visits.sum())
-    b_ms, b_by = bound(pairs * RBM_OPS_PER_PAIR, n * 25 + nv * 12 + nc * 16)
+    origins = int(torch.unique(o_c, dim=0).shape[0])
+    near = near_pairs(o_c, ray_d, cl, thr, torch)
+    nbytes = n * 25 + nv * 12 + nc * 16
+    b_ms, b_by = bound(rbmc_ops(n, nv, nc, pairs, origins, near), nbytes)
+    # the same lines with each origin moved along its own ray: every unit
+    # takes the kernel's unshared branch (17 operations a pair)
+    o_s = (ray_o + ray_d * torch.linspace(-0.3, 0.3, n, device=dev)[:, None]
+           ).contiguous()
+    mk = knn_cluster.ray_body_mask_clustered_cuda(o_s, ray_d, cl, thr)
+    mp, vis_s = knn_cluster.ray_body_mask_clustered_plain(
+        (o_s - cl.ctr0).contiguous(), ray_d, cl, thr)
+    torch.cuda.synchronize()
+    note_err("ray_body_mask_clustered", mk, mp)
+    check(torch.equal(mk, mp), f"ray_body_mask_clustered, origins spread: "
+          f"masks differ ({int((mk != mp).sum())} rays)")
+    cases.append({"kernel": "ray_body_mask_clustered", "call": "origins_spread",
+                  "n": n, "equal": True, "hits": int(mk.sum()),
+                  "pairs": int(vis_s.sum())})
+    o_sc = (o_s - cl.ctr0).contiguous()
+    origins_s = int(torch.unique(o_sc, dim=0).shape[0])
+    near_s = near_pairs(o_sc, ray_d, cl, thr, torch)
+    del o_sc
+    union_pairs, union_slots = warp_union_pairs(o_c, ray_d, cl, thr, torch)
     rows.append({
         "name": "ray_body_mask_clustered", "route": "cuda",
         "source": "sherf_tpu_torch/csrc/knn_cluster.cu",
@@ -1075,22 +1166,35 @@ def main():
         "launches_by_path": by_path("ray_body_mask_clustered"),
         "max_abs_err": errs["ray_body_mask_clustered"],
         "ms": cuda_ms(lambda: knn_cluster.ray_body_mask_clustered_cuda(
-            o_c, ray_d, cl, thr), 5, torch),
+            ray_o, ray_d, cl, thr), 20, torch),
         "plain_ms": cuda_ms(lambda: knn_cluster.ray_body_mask_clustered_plain(
             o_c, ray_d, cl, thr), 3, torch),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "all_pairs_bound_ms": bound(pairs * RBM_OPS_PER_PAIR, nbytes)[0],
+        "origins_spread_ms": cuda_ms(
+            lambda: knn_cluster.ray_body_mask_clustered_cuda(
+                o_s, ray_d, cl, thr), 20, torch),
+        "origins_spread_bound_ms": bound(rbmc_ops(
+            n, nv, nc, int(vis_s.sum()), origins_s, near_s), nbytes)[0],
         "full_scan_ms": cuda_ms(lambda: knn.ray_body_mask_cuda(
-            o_f, ray_d, v_f, thr), 5, torch),
+            o_f, d_full, v_f, thr), 5, torch),
         "full_scan_active_ms": cuda_ms(lambda: knn.ray_body_mask_cuda(
-            o_f, ray_d, v_f, thr, act), 5, torch),
+            o_f, d_full, v_f, thr, act), 5, torch),
         "wrapper_ms": cuda_ms(lambda: knn_cluster.ray_body_mask_clustered(
-            ray_o, ray_d, verts, thr), 5, torch),
+            ray_o, ray_d, verts, thr), 20, torch),
         "full_scan_wrapper_ms": cuda_ms(lambda: knn.ray_body_mask(
             ray_o, ray_d, verts, thr, active=act), 5, torch),
         **wrapper_ops(lambda: knn_cluster.ray_body_mask_clustered(
             ray_o, ray_d, verts, thr)),
-        "n": n, "v": nv, "clusters": nc, "pairs": pairs,
-        "pairs_share": pairs / (n * nv)})
+        **knn_cluster.ray_body_mask_clustered_attrs(),
+        "n": n, "v": nv, "clusters": nc, "origins": origins,
+        "near_pairs": near, "origins_spread_near_pairs": near_s,
+        "strides": [list(ray_o.stride()), list(ray_d.stride())],
+        "pairs": pairs, "pairs_share": pairs / (n * nv),
+        "origins_spread_pairs": int(vis_s.sum()),
+        "warp_union_pairs": union_pairs,
+        "warp_union_lane_slots": union_slots})
+    del o_s
 
     # the prep kernel, timed at the point-budget KNN's vertices (B5's
     # clusters); bound: its bytes (read V rows, write the order, the sorted

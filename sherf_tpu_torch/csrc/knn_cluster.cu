@@ -5,7 +5,7 @@
 // nn1_cluster_kernel replaces _knn_cluster_kernel / nn_1_clustered_pallas
 // (sherf_tpu/kernels/knn_pallas.py:159, :207); nn1_shortlist_kernel replaces
 // _knn_shortlist_kernel / nn_1_shortlist_pallas (:277, :318);
-// ray_cluster_kernel replaces _ray_seg_cluster_kernel /
+// ray_mask_cluster_kernel replaces _ray_seg_cluster_kernel /
 // ray_body_mask_clustered_pallas (:461, :501); cluster_prep_kernel replaces
 // the XLA prep of all three wrappers (morton_order :87, the gather and
 // centring :220-227, _cluster_stats_sized :104).  They compute the
@@ -74,22 +74,50 @@
 // one, so a wrapper launches nothing after them.  A d2 that is NaN never
 // wins; a query no visited row beats keeps its initial best and index 0.
 //
-// ray_body_mask_clustered: one thread per ray.  A warp scans cluster c
-// while any lane that has not hit has
-// max(sqrt(dl2) * (1 - 1e-5) - r_c, 0)^2 < thr, dl2 the squared distance
-// from its line to the centroid; a hit lane stops scanning.  It stages the
-// cluster table and every vertex per block (111 KB); bounded by 17
-// operations a visited pair.
+// ray_body_mask_clustered: what bounds it is operations too: each
+// (ray, cluster) quick rejection (the line's squared distance to the
+// centroid and a compare: 9 f32 operations where the rays share their
+// origin, 17 where they do not), 7 more (the square-root test) for each
+// (ray, cluster) it passes, then 9 for each (ray, vertex) pair a visit
+// tests where the rays share their origin, 17 where they do not; at the
+// frame's call on an H100 it reaches about 14% of that bound (PERF.md §6,
+// row 7).  The design (PERF.md has the probes behind each choice; the
+// SHERF_RAY_* and SHERF_PROBE macros below build the variants that
+// sherf_tpu_torch/ray_cluster_probe.py times, and the default build
+// defines none of them):
+//   * one persistent block of 32 warps an SM stages the vertices and the
+//     cluster table once, with cp.async; warps take units of 8 rays in ray
+//     order from the per-call counter.  Units of 32 rays (one a lane) left
+//     the few warps that drew the rays crossing the body running long
+//     after the others had left;
+//   * four lanes a ray split its bounds (cluster c in lane c mod 4), each
+//     lane testing up to 32 clusters before any ballot, so the bounds run
+//     as independent chains; a quick rejection, dl2 >= ((sqrt(thr) + r_c)
+//     1.001)^2, spares most bounds the square root without changing a
+//     decision;
+//   * each ray takes its own visit decisions: cluster by cluster, in
+//     ascending order, a ballot collects the rays that have not hit and
+//     whose bound admits the cluster, the lanes split its rows (4 a lane a
+//     pass of 128) and test two of those rays an iteration, and one OR
+//     over the warp ends the pass.  Only pairs a ray's own bound admitted
+//     are tested, and no lane waits on another's early exit;
+//   * where a unit's rays share one origin (a pinhole camera's), a pass
+//     computes w = v - o and a = |w|^2 once a row for all of them: 9
+//     operations a pair instead of 17, the same bits;
+//   * it reads raw origins and directions at any row and column strides
+//     and subtracts the centre itself, so its wrapper is the prep, a memset
+//     and this kernel, on the frame's strided rays.
 //
 // Every distance and bound uses the round-to-nearest intrinsics, which
 // nvcc never contracts into FMAs, with the wrapper's f32 constants.  Each
-// nearest-vertex kernel's tile counter lives in per-call scratch, so calls
-// on two streams share no state.
+// kernel's unit counter lives in per-call scratch, so calls on two streams
+// share no state.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
+#include <cmath>
 
 #include <cub/block/block_radix_sort.cuh>
 
@@ -107,10 +135,7 @@ constexpr float kBoxFloor = static_cast<float>(1e-9);
 constexpr float kSentinel = 1e6f;
 constexpr unsigned kFull = 0xffffffffu;
 
-// ray_body_mask_clustered
-constexpr int kRayThreads = 256;  // = RSEG_P, rays per block
-
-// nn_1_clustered, nn_1_shortlist
+// nn_1_clustered, nn_1_shortlist (and the launch of all three)
 constexpr int kQ = 2;                           // queries a lane
 constexpr int kUnit = 32 * kQ;                  // queries a warp takes
 constexpr int kWarps = 16;
@@ -123,6 +148,33 @@ constexpr int kScratchWords = 2;                // tile counter, zero word
 constexpr unsigned long long kNoKey = 0x7f80000000000000ull;  // (inf, 0)
 
 static_assert(kTile % kUnit == 0, "a shortlist tile is whole units");
+
+// ray_body_mask_clustered
+#ifndef SHERF_RAY_WARPS
+#define SHERF_RAY_WARPS 32
+#endif
+#ifndef SHERF_RAY_UNIT
+#define SHERF_RAY_UNIT 8
+#endif
+#ifndef SHERF_RAY_ROWS
+#define SHERF_RAY_ROWS 4
+#endif
+// SHERF_PROBE: 0 as built; 1 stage and leave; 2 bounds only, no visit; 3 no
+// quick rejection; 4 one ray an iteration of a pass; 5 the vertices staged
+// through registers (all three cluster kernels)
+#ifndef SHERF_PROBE
+#define SHERF_PROBE 0
+#endif
+constexpr int kRayWarps = SHERF_RAY_WARPS;      // warps a block, one an SM
+constexpr int kRayThreads = 32 * kRayWarps;
+constexpr int kRayUnit = SHERF_RAY_UNIT;        // rays a unit (a warp's)
+constexpr int kRayLanes = 32 / kRayUnit;        // lanes a ray (its bounds)
+static_assert(kRayUnit * kRayLanes == 32 && kRayLanes < 32,
+              "a unit's rays share the warp's lanes evenly");
+constexpr int kRayRows = SHERF_RAY_ROWS;        // rows a lane tests a pass
+constexpr int kRayPass = 32 * kRayRows;         // rows of a cluster a pass
+// margin of the quick rejection: far above the bound's f32 rounding
+constexpr float kRejectGrow = 1.001f;
 
 // prep
 constexpr int kPrepThreads = 1024;              // = PREP_LANES
@@ -394,7 +446,9 @@ cudaError_t launch_prep(const float* ref, int nv, int csize, int sorted_mean,
 // nn_1_clustered, nn_1_shortlist
 
 // sc[c] = (centroid, radius) of cluster c; sv[j] = sorted vertex j, from
-// (V, 3) floats read in order by consecutive threads
+// (V, 3) floats read in order by consecutive threads and copied with
+// cp.async (no round trip through registers; the caller's __syncthreads
+// publishes them)
 __device__ __forceinline__ void stage_coalesced(
     const float* __restrict__ v, int nv, const float* __restrict__ cent,
     const float* __restrict__ rad, int nc, float4* sc, float4* sv) {
@@ -403,8 +457,18 @@ __device__ __forceinline__ void stage_coalesced(
   float* s = reinterpret_cast<float*>(sv);
   for (int i = threadIdx.x; i < 3 * nv; i += blockDim.x) {
     const int j = i / 3;
+#if SHERF_PROBE == 5
     s[4 * j + (i - 3 * j)] = v[i];
+#else
+    const unsigned dst = static_cast<unsigned>(
+        __cvta_generic_to_shared(s + 4 * j + (i - 3 * j)));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+                 "l"(v + i) : "memory");
+#endif
   }
+#if SHERF_PROBE != 5
+  asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
 }
 
 // The next unit of the warp from the counter (every lane gets it).
@@ -785,91 +849,253 @@ nn1_shortlist_kernel(const float* __restrict__ q, int n,
 // ---------------------------------------------------------------------------
 // ray_body_mask_clustered
 
-// sc[c] = (centroid, radius) of cluster c; sv[j] = sorted vertex j
-__device__ __forceinline__ void stage_clusters(
-    const float* __restrict__ v, int nv, const float* __restrict__ cent,
-    const float* __restrict__ rad, int nc, float4* sc, float4* sv) {
-  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
-    sc[c] = make_float4(cent[3 * c], cent[3 * c + 1], cent[3 * c + 2], rad[c]);
-  }
-  for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-    sv[j] = make_float4(v[3 * j], v[3 * j + 1], v[3 * j + 2], 0.0f);
-  }
+// torch.clamp(x, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
 }
 
-// a - b*b*dd_inv with w = p - o, a = |w|^2, b = d.w
-__device__ __forceinline__ float line_dist(float px, float py, float pz,
-                                           float ox, float oy, float oz,
-                                           float dx, float dy, float dz,
-                                           float dd_inv) {
-  const float w0 = __fsub_rn(px, ox);
-  const float w1 = __fsub_rn(py, oy);
-  const float w2 = __fsub_rn(pz, oz);
-  const float a = sq3(w0, w1, w2);
+// a - (b*b) * dd_inv with b = d.w: the squared distance from the line of
+// direction d to the point at w from its origin, a = |w|^2
+__device__ __forceinline__ float line_dist(float a, float w0, float w1,
+                                           float w2, float dx, float dy,
+                                           float dz, float dd_inv) {
   const float b = __fadd_rn(__fadd_rn(__fmul_rn(dx, w0), __fmul_rn(dy, w1)),
                             __fmul_rn(dz, w2));
   return __fsub_rn(a, __fmul_rn(__fmul_rn(b, b), dd_inv));
 }
 
-__global__ void __launch_bounds__(kRayThreads)
-ray_cluster_kernel(const float* __restrict__ o, const float* __restrict__ dir,
-                   int n, const float* __restrict__ v, int nv,
-                   const float* __restrict__ cent,
-                   const float* __restrict__ rad, int nc, int csize,
-                   float thr, unsigned char* __restrict__ out) {
+// The squared distance from the lane's ray's line to the point p (w and
+// a from the ray's origin, as the plain version rounds them).
+__device__ __forceinline__ float line_dist_to(float px, float py, float pz,
+                                              float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              float ddi) {
+  const float w0 = __fsub_rn(px, ox);
+  const float w1 = __fsub_rn(py, oy);
+  const float w2 = __fsub_rn(pz, oz);
+  return line_dist(sq3(w0, w1, w2), w0, w1, w2, dx, dy, dz, ddi);
+}
+
+// Ray q of the unit, for every lane: its direction and 1/|d|^2, and its
+// origin where the unit's origins differ.
+struct PassRay {
+  float dx, dy, dz, di, ox, oy, oz;
+};
+
+template <bool kShared>
+__device__ __forceinline__ PassRay pass_ray(int q, float ox, float oy,
+                                            float oz, float dx, float dy,
+                                            float dz, float ddi) {
+  PassRay r;
+  r.dx = __shfl_sync(kFull, dx, q);
+  r.dy = __shfl_sync(kFull, dy, q);
+  r.dz = __shfl_sync(kFull, dz, q);
+  r.di = __shfl_sync(kFull, ddi, q);
+  r.ox = kShared ? ox : __shfl_sync(kFull, ox, q);
+  r.oy = kShared ? oy : __shfl_sync(kFull, oy, q);
+  r.oz = kShared ? oz : __shfl_sync(kFull, oz, q);
+  return r;
+}
+
+// One pass of a visited cluster: rows [jp, min(jp + kRows * 32, j1))
+// against each ray of `todo` (lanes' bits).  The lanes split the rows,
+// kRows each (a row past j1 is NaN, which never hits).  Two rays an
+// iteration come by shuffle; each lane ORs its rows' verdicts into its
+// mask of rays, and one OR over the warp ends the pass: the rays with a
+// row at dist < thr.  kShared: every ray of the unit has the lane's
+// origin, so w = p - o and a = |w|^2 are computed once a row.
+template <bool kShared, int kRows>
+__device__ __forceinline__ unsigned ray_pass(const float4* sv, int jp, int j1,
+                                             unsigned todo, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float ddi,
+                                             float thr, int lane) {
+  const float nan = __int_as_float(0x7fffffff);
+  float px[kRows], py[kRows], pz[kRows], pa[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int j = jp + 32 * r + lane;
+    const float4 p = j < j1 ? sv[j] : make_float4(nan, nan, nan, nan);
+    if (kShared) {
+      px[r] = __fsub_rn(p.x, ox);
+      py[r] = __fsub_rn(p.y, oy);
+      pz[r] = __fsub_rn(p.z, oz);
+      pa[r] = sq3(px[r], py[r], pz[r]);
+    } else {
+      px[r] = p.x;
+      py[r] = p.y;
+      pz[r] = p.z;
+    }
+  }
+  unsigned mine = 0;
+  while (todo != 0) {
+    // the second ray repeats the first where only one is left
+    const int q0 = __ffs(todo) - 1;
+    todo &= todo - 1;
+#if SHERF_PROBE == 4
+    const int q1 = q0;
+#else
+    const int q1 = todo != 0 ? __ffs(todo) - 1 : q0;
+    todo &= todo - 1;
+#endif
+    const PassRay r0 = pass_ray<kShared>(q0, ox, oy, oz, dx, dy, dz, ddi);
+    const PassRay r1 = pass_ray<kShared>(q1, ox, oy, oz, dx, dy, dz, ddi);
+    bool h0 = false, h1 = false;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (kShared) {
+        h0 |= line_dist(pa[r], px[r], py[r], pz[r], r0.dx, r0.dy, r0.dz,
+                        r0.di) < thr;
+        h1 |= line_dist(pa[r], px[r], py[r], pz[r], r1.dx, r1.dy, r1.dz,
+                        r1.di) < thr;
+      } else {
+        h0 |= line_dist_to(px[r], py[r], pz[r], r0.ox, r0.oy, r0.oz, r0.dx,
+                           r0.dy, r0.dz, r0.di) < thr;
+        h1 |= line_dist_to(px[r], py[r], pz[r], r1.ox, r1.oy, r1.oz, r1.dx,
+                           r1.dy, r1.dz, r1.di) < thr;
+      }
+    }
+    mine |= (static_cast<unsigned>(h0) << q0)
+        | (static_cast<unsigned>(h1) << q1);
+  }
+  return __reduce_or_sync(kFull, mine);
+}
+
+__global__ void __launch_bounds__(kRayThreads, 1024 / kRayThreads)
+ray_mask_cluster_kernel(const float* __restrict__ o, long long os0,
+                        long long os1, const float* __restrict__ dir,
+                        long long ds0, long long ds1, int n,
+                        const float* __restrict__ ctr0,
+                        const float* __restrict__ v, int nv,
+                        const float* __restrict__ cent,
+                        const float* __restrict__ rad, int nc, int csize,
+                        float thr, float thr_root,
+                        unsigned char* __restrict__ out,
+                        unsigned* __restrict__ counter) {
   extern __shared__ float4 smem[];
   float4* sc = smem;
   float4* sv = smem + nc;
-  stage_clusters(v, nv, cent, rad, nc, sc, sv);
+  stage_coalesced(v, nv, cent, rad, nc, sc, sv);
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const float ox = live ? o[3 * i] : 0.0f;
-  const float oy = live ? o[3 * i + 1] : 0.0f;
-  const float oz = live ? o[3 * i + 2] : 0.0f;
-  const float dx = live ? dir[3 * i] : 0.0f;
-  const float dy = live ? dir[3 * i + 1] : 0.0f;
-  const float dz = live ? dir[3 * i + 2] : 0.0f;
-  const float dd_inv = __fdiv_rn(1.0f, fmaxf(sq3(dx, dy, dz), kDdFloor));
-  bool hit = false;
-  for (int c = 0; c < nc; ++c) {
-    const float4 k = sc[c];
-    const float dl2 = fmaxf(
-        line_dist(k.x, k.y, k.z, ox, oy, oz, dx, dy, dz, dd_inv), 0.0f);
-    const float m = fmaxf(__fsub_rn(__fmul_rn(__fsqrt_rn(dl2), kShrink), k.w),
-                          0.0f);
-    const bool want = live && !hit && __fmul_rn(m, m) < thr;
-    if (!__any_sync(kFull, want)) continue;
-    const int j1 = min(c * csize + csize, nv);
-    for (int j = c * csize; j < j1 && !hit; ++j) {
-      const float4 p = sv[j];
-      hit = line_dist(p.x, p.y, p.z, ox, oy, oz, dx, dy, dz, dd_inv) < thr;
+  const int lane = threadIdx.x & 31;
+  const float cx = ctr0[0], cy = ctr0[1], cz = ctr0[2];
+  const int units = (n + kRayUnit - 1) / kRayUnit;
+#if SHERF_PROBE == 1
+  if (n > 0) return;
+#endif
+
+  // lane = kRayLanes lanes of each of the unit's rays: the lane's ray and
+  // its phase, the clusters (c = q mod kRayLanes) whose bounds it takes
+  const int rr = lane / kRayLanes, q = lane % kRayLanes;
+  // a mask with one bit a ray (at its lanes' first) spread to all its lanes
+  constexpr unsigned kRayFill = (1u << kRayLanes) - 1u;
+
+  while (true) {
+    const int unit = next_unit(counter, lane);
+    if (unit >= units) break;
+    const int i = unit * kRayUnit + rr;
+    // past n: a copy of ray n - 1, which is not live and wants nothing
+    const long long r = min(i, n - 1);
+    const float* po = o + r * os0;
+    const float* pd = dir + r * ds0;
+    const float ox = __fsub_rn(po[0], cx);
+    const float oy = __fsub_rn(po[os1], cy);
+    const float oz = __fsub_rn(po[2 * os1], cz);
+    const float dx = pd[0], dy = pd[ds1], dz = pd[2 * ds1];
+    const float ddi = __fdiv_rn(1.0f, clamp_min(sq3(dx, dy, dz), kDdFloor));
+    // lane masks: every lane of a live ray, of a ray that has hit
+    const unsigned live = __ballot_sync(kFull, i < n);
+    const unsigned x0 = __shfl_sync(kFull, __float_as_uint(ox), 0);
+    const unsigned y0 = __shfl_sync(kFull, __float_as_uint(oy), 0);
+    const unsigned z0 = __shfl_sync(kFull, __float_as_uint(oz), 0);
+    const bool shared = __all_sync(kFull, __float_as_uint(ox) == x0
+                                   && __float_as_uint(oy) == y0
+                                   && __float_as_uint(oz) == z0);
+    unsigned hits = 0;
+    for (int c0 = 0; c0 < nc && hits != live; c0 += 32) {
+      const int cn = min(32, nc - c0);
+      // bit k (k = q mod kRayLanes): cluster c0 + k may be admitted.
+      // Quick rejection: dl2 >= ((sqrt(thr) + r_c) 1.001)^2 gives
+      // lb >= thr (1 + 1.9e-3) whatever the f32 rounding of the exact
+      // test, so only rays near a cluster take its square root
+      unsigned near = 0;
+#pragma unroll 4
+      for (int k = q; k < cn; k += kRayLanes) {
+#if SHERF_PROBE == 3
+        near |= 1u << k;
+#else
+        const float4 kc = sc[c0 + k];
+        const float dl2 = line_dist_to(kc.x, kc.y, kc.z, ox, oy, oz, dx, dy,
+                                       dz, ddi);
+        const float rj = __fmul_rn(__fadd_rn(thr_root, kc.w), kRejectGrow);
+        near |= static_cast<unsigned>(dl2 < __fmul_rn(rj, rj)) << k;
+#endif
+      }
+      // the exact test: max(sqrt(dl2) (1 - 1e-5) - r_c, 0)^2 < thr
+      unsigned want = 0;
+      for (unsigned m = near; m != 0; m &= m - 1) {
+        const int k = __ffs(m) - 1;
+        const float4 kc = sc[c0 + k];
+        const float dl2 = line_dist_to(kc.x, kc.y, kc.z, ox, oy, oz, dx, dy,
+                                       dz, ddi);
+        const float mm = clamp_min(__fsub_rn(__fmul_rn(
+            __fsqrt_rn(clamp_min(dl2, 0.0f)), kShrink), kc.w), 0.0f);
+        want |= static_cast<unsigned>(__fmul_rn(mm, mm) < thr) << k;
+      }
+      // the chunk's clusters that some live ray that has not hit wants,
+      // in ascending order
+      const bool waiting = ((live & ~hits) >> lane) & 1u;
+      unsigned any = __reduce_or_sync(kFull, waiting ? want : 0u);
+      while (any != 0 && hits != live) {
+        const int k = __ffs(any) - 1;
+        any &= any - 1;
+        // its rays, one bit each at their lane of phase k mod kRayLanes
+        const int qk = k % kRayLanes;
+        unsigned todo =
+            __ballot_sync(kFull, (want >> k) & 1u) & live & ~hits;
+#if SHERF_PROBE == 2
+        if (todo == 0x5a5a5a5au) hits |= 1u;
+        todo = 0;
+#endif
+        const int c = c0 + k;
+        const int j1 = min(c * csize + csize, nv);
+        for (int jp = c * csize; todo != 0 && jp < j1; jp += kRayPass) {
+          const unsigned found = shared
+              ? ray_pass<true, kRayRows>(sv, jp, j1, todo, ox, oy, oz, dx,
+                                         dy, dz, ddi, thr, lane)
+              : ray_pass<false, kRayRows>(sv, jp, j1, todo, ox, oy, oz, dx,
+                                          dy, dz, ddi, thr, lane);
+          hits |= (found >> qk) * kRayFill;
+          todo &= ~found;
+        }
+      }
     }
+    if (q == 0 && i < n) out[i] = (hits >> lane) & 1u;
   }
-  if (live) out[i] = hit ? 1 : 0;
 }
 
 int cluster_smem_bytes(int nv, int nc) {
   return (nv + nc) * static_cast<int>(sizeof(float4));
 }
 
-// The persistent launch shared by the two nearest-vertex kernels: sizes the
-// grid, zeroes the scratch words, launches.
+// The persistent launch shared by the three cluster kernels: sizes the
+// grid of `threads`-thread blocks for `units` warp units, zeroes the
+// scratch words, launches.
 template <typename K, typename... Args>
-cudaError_t launch_nn(K kernel, int n, int nv, int nc, unsigned* scratch,
-                      cudaStream_t st, Args... args) {
+cudaError_t launch_units(K kernel, int threads, int units, int nv, int nc,
+                         unsigned* scratch, cudaStream_t st, Args... args) {
   const int smem = cluster_smem_bytes(nv, nc);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int units = (n + kUnit - 1) / kUnit;
   int blocks = 0;
-  err = persistent_blocks(kernel, kNnThreads, smem,
-                          (units + kWarps - 1) / kWarps, &blocks);
+  const int warps = threads / 32;
+  err = persistent_blocks(kernel, threads, smem, (units + warps - 1) / warps,
+                          &blocks);
   if (err != cudaSuccess) return err;
   err = cudaMemsetAsync(scratch, 0, kScratchWords * sizeof(unsigned), st);
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, kNnThreads, smem, st>>>(args..., scratch);
+  kernel<<<blocks, threads, smem, st>>>(args..., scratch);
   return cudaGetLastError();
 }
 
@@ -906,9 +1132,9 @@ int sherf_nn1_clustered(const float* q, int n, const float* ctr0,
                         const float* rad, int nc, int csize,
                         const long long* order, float* d2, int* idx,
                         unsigned* scratch, void* stream) {
-  return launch_nn(nn1_cluster_kernel, n, nv, nc, scratch,
-                   static_cast<cudaStream_t>(stream), q, n, ctr0, v, nv, cent,
-                   rad, nc, csize, order, d2, idx);
+  return launch_units(nn1_cluster_kernel, kNnThreads, (n + kUnit - 1) / kUnit,
+                      nv, nc, scratch, static_cast<cudaStream_t>(stream), q,
+                      n, ctr0, v, nv, cent, rad, nc, csize, order, d2, idx);
 }
 
 // as sherf_nn1_clustered, nc <= kMaxListed; counts (T,) and ids (T, nc),
@@ -920,25 +1146,38 @@ int sherf_nn1_shortlist(const float* q, int n, const float* ctr0,
                         int* counts, int* ids, unsigned* scratch,
                         void* stream) {
   if (nc > kMaxListed) return cudaErrorInvalidValue;
-  return launch_nn(nn1_shortlist_kernel, n, nv, nc, scratch,
-                   static_cast<cudaStream_t>(stream), q, n, ctr0, v, nv, cent,
-                   rad, nc, csize, order, d2, idx, counts, ids);
+  return launch_units(nn1_shortlist_kernel, kNnThreads,
+                      (n + kUnit - 1) / kUnit, nv, nc, scratch,
+                      static_cast<cudaStream_t>(stream), q, n, ctr0, v, nv,
+                      cent, rad, nc, csize, order, d2, idx, counts, ids);
 }
 
-int sherf_ray_body_mask_clustered(const float* o, const float* d, int n,
-                                  const float* v, int nv, const float* cent,
-                                  const float* rad, int nc, int csize,
-                                  float thr, unsigned char* out,
-                                  void* stream) {
-  const int smem = cluster_smem_bytes(nv, nc);
-  cudaError_t err = cudaFuncSetAttribute(
-      ray_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// o, d (n, 3) at strides (os0, os1), (ds0, ds1) in floats; o raw (the
+// kernel subtracts ctr0); scratch: kScratchWords words, zeroed here
+int sherf_ray_body_mask_clustered(const float* o, long long os0,
+                                  long long os1, const float* d,
+                                  long long ds0, long long ds1, int n,
+                                  const float* ctr0, const float* v, int nv,
+                                  const float* cent, const float* rad, int nc,
+                                  int csize, float thr, unsigned char* out,
+                                  unsigned* scratch, void* stream) {
+  const float thr_root = static_cast<float>(std::sqrt(static_cast<double>(thr)));
+  return launch_units(ray_mask_cluster_kernel, kRayThreads,
+                      (n + kRayUnit - 1) / kRayUnit, nv, nc, scratch,
+                      static_cast<cudaStream_t>(stream), o, os0, os1, d, ds0,
+                      ds1, n, ctr0, v, nv, cent, rad, nc, csize, thr,
+                      thr_root, out);
+}
+
+// the kernel as built: out[0] registers a thread, out[1] local (spilled)
+// bytes a thread
+int sherf_ray_body_mask_clustered_attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, ray_mask_cluster_kernel);
   if (err != cudaSuccess) return err;
-  const int blocks = (n + kRayThreads - 1) / kRayThreads;
-  ray_cluster_kernel<<<blocks, kRayThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      o, d, n, v, nv, cent, rad, nc, csize, thr, out);
-  return cudaGetLastError();
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ frame's six (n, cap, survivors) calls; ray_body_mask at 262,144 rays and
 SMPL's 6,890 vertices; the public clustered wrappers nn_1_clustered and
 nn_1_shortlist at the point-budget call's 417,792 queries, 111,899 of them
 the budget's padding parked 1e6 m away, and ray_body_mask_clustered at the
-frame's rays), with inputs made from a seed:
+frame's rays in the frame's layout: the origins a view at strides (1, N),
+as the batch stores them), with inputs made from a seed:
 
 * ``host_ms``: median host time for one call to return, started with the
   card idle.  This covers the wrapper's checks and allocations, the C entry
@@ -130,7 +131,8 @@ def main(argv=None):
                             "active": int(act.sum()), "host_ms": host_ms,
                             "back_to_back_ms": b2b_ms}
 
-    v_t, o_t = torch.from_numpy(v).to(dev), torch.from_numpy(o).to(dev)
+    v_t = torch.from_numpy(v).to(dev)
+    o_t = torch.from_numpy(np.ascontiguousarray(o.T)).to(dev).t()
     q = np.full((POINT_QUERIES, 3), 1e6, np.float32)
     q[:POINT_SURVIVORS] = (v[rng.randint(0, len(v), POINT_SURVIVORS)]
                            + rng.randn(POINT_SURVIVORS, 3) * 0.03)

@@ -47,6 +47,7 @@ BUILD_INFO = {"seconds": None}
 _LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "sherf_nn1": (_I, [_P, _I, _P, _I, _P, _P, _P]),
     "sherf_ray_body_mask": (_I, [_P, _P, _P, _I, _P, _I, ctypes.c_float, _P, _P]),
@@ -67,8 +68,10 @@ _SIGNATURES = {
                                  _P, _P, _P]),
     "sherf_nn1_shortlist": (_I, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P,
                                  _P, _P, _P, _P, _P]),
-    "sherf_ray_body_mask_clustered": (_I, [_P, _P, _I, _P, _I, _P, _P, _I, _I,
-                                           ctypes.c_float, _P, _P]),
+    "sherf_ray_body_mask_clustered": (_I, [_P, _L, _L, _P, _L, _L, _I, _P, _P,
+                                           _I, _P, _P, _I, _I, ctypes.c_float,
+                                           _P, _P, _P]),
+    "sherf_ray_body_mask_clustered_attrs": (_I, [_P]),
     "sherf_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -154,9 +157,11 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` on
-    ``device`` whose shape matches ``shape`` (None entries match any size)."""
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device,
+            contiguous: bool = True):
+    """Raise unless ``t`` is a CUDA tensor of ``dtype`` on ``device`` whose
+    shape matches ``shape`` (None entries match any size), contiguous
+    unless ``contiguous`` is False."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if not t.is_cuda:
@@ -169,5 +174,13 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
     if t.dim() != len(shape) or any(
             s is not None and t.shape[i] != s for i, s in enumerate(shape)):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def kernel_attrs(entry: str) -> dict:
+    """Registers and spilled (local) bytes a thread of the kernel that the
+    C entry point ``entry`` reports, as built for the current device."""
+    out = (ctypes.c_int * 2)()
+    check(getattr(library(), entry)(ctypes.addressof(out)), entry)
+    return {"registers": out[0], "local_bytes": out[1]}

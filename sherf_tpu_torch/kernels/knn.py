@@ -24,7 +24,6 @@ plain versions.)
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -213,10 +212,7 @@ def ray_body_mask_cuda(o_c, d, v_c, threshold_sq: float, active=None):
 def ray_body_mask_attrs() -> dict:
     """The CUDA kernel as built for the current device: registers and
     spilled (local) bytes a thread."""
-    out = (ctypes.c_int * 2)()
-    _cuda.check(_cuda.library().sherf_ray_body_mask_attrs(
-        ctypes.addressof(out)), "ray_body_mask_attrs")
-    return {"registers": out[0], "local_bytes": out[1]}
+    return _cuda.kernel_attrs("sherf_ray_body_mask_attrs")
 
 
 @torch.no_grad()

@@ -20,19 +20,19 @@ visits only the clusters of vertices that a bound says may matter:
     ``lb_r`` order (a stable sort) and visits them in that order, except
     that a listed cluster c is skipped where every query q of the group
     has ``(max(d_qc - r_c, 0) (1 - 1e-5))^2 > best_q``, its running best;
-  * B7: a ray visits cluster c while it has not hit and
-    ``max(sqrt(dl2) (1 - 1e-5) - r_c, 0)^2 < thr``, dl2 the squared
+  * B7: a ray visits cluster c, in ascending order, while it has not hit
+    and ``max(sqrt(dl2) (1 - 1e-5) - r_c, 0)^2 < thr``, dl2 the squared
     distance from its line to the centroid.
 
 Inside a visited cluster the distances are the full scan's exact
 elementwise f32 ones.  The Pallas kernels take the visit decision for a
 whole tile of 512 (256) queries; the CUDA kernels (``csrc/knn_cluster.cu``)
-take it for the queries of a warp: NN_GROUP = 64 consecutive queries (two
-a lane) for B5 and B6, WARP = 32 rays for B7.  A visit can only lower a
-running minimum (or set a hit) where the bound says it may, so the grain
-changes the work and not the result.  Ties go to the first vertex in visit
-order: Morton order for B5, the tile's lb-sorted order for B6 — not the
-lowest original index of the full scan.
+take it for the queries of a warp, NN_GROUP = 64 consecutive queries (two
+a lane), for B5 and B6, and for each ray on its own for B7.  A visit can
+only lower a running minimum (or set a hit) where the bound says it may,
+so the grain changes the work and not the result.  Ties go to the first
+vertex in visit order: Morton order for B5, the tile's lb-sorted order for
+B6 — not the lowest original index of the full scan.
 
 The vertices are centred on their mean: of the SORTED array for B5 and B7
 (``knn_pallas.py:222-223, :514-515``), of the unsorted one for B6
@@ -72,7 +72,6 @@ CLUSTERED = os.environ.get("SHERF_KNN_CLUSTER", "0") != "0"
 SL_CSIZE = int(os.environ.get("SHERF_KNN_SL_CSIZE", "256"))
 P_TILE = 512            # queries per shortlist tile
 NN_GROUP = 64           # grain of the B5 / B6 visit decision: a warp's queries
-WARP = 32               # grain of the B7 visit decision: a warp's rays
 MAX_LISTED = 64         # clusters a B6 tile can rank (two a lane)
 PREP_LANES = 1024       # lanes of the prep kernel's sum of the centre
 CLUSTER_LANES = 32      # lanes of a cluster's sum (a warp)
@@ -526,47 +525,61 @@ def _line_terms(o: torch.Tensor, d: torch.Tensor, dd_inv: torch.Tensor,
     return a - b * b * dd_inv
 
 
+def ray_cluster_bounds(o_c: torch.Tensor, d: torch.Tensor, cl: Clusters):
+    """(dd_inv (n, 1), lb (n, C)) for CENTRED origins: 1/|d|^2 (|d|^2
+    clamped to 1e-12) and each ray's lower bound
+    ``max(sqrt(dl2) (1 - 1e-5) - r_c, 0)^2`` on its line's squared
+    distance to cluster c, dl2 the squared distance to the centroid
+    (clamped to 0).  A ray visits c only where ``lb < thr``."""
+    dd_inv = torch.reciprocal(torch.clamp(_sq3(d[:, 0:1], d[:, 1:2], d[:, 2:3]),
+                                          min=1e-12))
+    dl2 = torch.clamp(_line_terms(o_c, d, dd_inv, cl.cent), min=0.0)
+    m = torch.clamp(torch.sqrt(dl2) * _f32(1.0 - 1e-5, o_c) - cl.rad[None],
+                    min=0.0)
+    return dd_inv, m * m
+
+
 def ray_body_mask_clustered_plain(o_c: torch.Tensor, d: torch.Tensor,
                                   cl: Clusters, threshold_sq: float):
     """Plain version on CENTRED origins: (hit (N,) bool, visits (N,) int32
-    vertices admitted by each ray's own bound test)."""
+    vertices of the clusters each ray visited).  Each ray on its own takes
+    the clusters in ascending order and visits c while it has not hit and
+    its ``lb < thr`` (:func:`ray_cluster_bounds`); a visit tests every row
+    of c (``dist < thr``, OR over the rows)."""
     n, C = o_c.shape[0], cl.cent.shape[0]
     thr = _f32(threshold_sq, o_c)
     rows = cl.rows
     hit = torch.zeros((n,), dtype=torch.bool, device=o_c.device)
     visits = torch.zeros((n,), dtype=torch.int32, device=o_c.device)
-    chunk = PLAIN_CHUNK // WARP * WARP
-    for s in range(0, n, chunk):
-        o, dr = o_c[s:s + chunk], d[s:s + chunk]
-        dd_inv = torch.reciprocal(torch.clamp(
-            _sq3(dr[:, 0:1], dr[:, 1:2], dr[:, 2:3]), min=1e-12))
-        dl2 = torch.clamp(_line_terms(o, dr, dd_inv, cl.cent), min=0.0)
-        m = torch.clamp(torch.sqrt(dl2) * _f32(1.0 - 1e-5, o) - cl.rad[None],
-                        min=0.0)
-        lb = m * m                                                  # (n, C)
+    for s in range(0, n, PLAIN_CHUNK):
+        o, dr = o_c[s:s + PLAIN_CHUNK], d[s:s + PLAIN_CHUNK]
+        dd_inv, lb = ray_cluster_bounds(o, dr, cl)
         h = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
-        vis = torch.zeros_like(visits[s:s + chunk])
+        vis = torch.zeros_like(visits[s:s + PLAIN_CHUNK])
         for c in range(C):
             want = ~h & (lb[:, c] < thr)
             vis += torch.where(want, rows[c], 0).to(torch.int32)
-            sel = torch.nonzero(_group_any(want, WARP)).flatten()
+            sel = torch.nonzero(want).flatten()
             if sel.numel() == 0:
                 continue
             j0 = c * cl.csize
             dist = _line_terms(o[sel], dr[sel], dd_inv[sel],
                                cl.vs[j0:j0 + cl.csize])
-            h[sel] = h[sel] | (dist.amin(dim=1) < thr)
-        hit[s:s + chunk], visits[s:s + chunk] = h, vis
+            h[sel] = (dist < thr).any(dim=1)
+        hit[s:s + PLAIN_CHUNK], visits[s:s + PLAIN_CHUNK] = h, vis
     return hit, visits
 
 
-def ray_body_mask_clustered_cuda(o_c: torch.Tensor, d: torch.Tensor,
+def ray_body_mask_clustered_cuda(ray_o: torch.Tensor, ray_d: torch.Tensor,
                                  cl: Clusters, threshold_sq: float):
-    """CUDA kernel on CENTRED origins -> (N,) bool; counts its launch."""
-    dev = o_c.device
-    _cuda.require(o_c, "ray_o", torch.float32, (None, 3), dev)
-    n = o_c.shape[0]
-    _cuda.require(d, "ray_d", torch.float32, (n, 3), dev)
+    """CUDA kernel on RAW origins (it subtracts ``cl.ctr0``) and directions,
+    each (N, 3) float32 at any strides (the frame's views are read in
+    place) -> (N,) bool; counts its launch."""
+    dev = ray_o.device
+    _cuda.require(ray_o, "ray_o", torch.float32, (None, 3), dev,
+                  contiguous=False)
+    n = ray_o.shape[0]
+    _cuda.require(ray_d, "ray_d", torch.float32, (n, 3), dev, contiguous=False)
     _require_clusters(cl, dev)
     nv, nc = cl.vs.shape[0], cl.cent.shape[0]
     lib = _cuda.library()
@@ -575,13 +588,21 @@ def ray_body_mask_clustered_cuda(o_c: torch.Tensor, d: torch.Tensor,
                          f"clusters exceed the shared-memory capacity")
     out = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
+        scratch = torch.empty((2,), dtype=torch.int32, device=dev)
         _cuda.check(lib.sherf_ray_body_mask_clustered(
-            o_c.data_ptr(), d.data_ptr(), n, cl.vs.data_ptr(), nv,
+            ray_o.data_ptr(), *ray_o.stride(), ray_d.data_ptr(),
+            *ray_d.stride(), n, cl.ctr0.data_ptr(), cl.vs.data_ptr(), nv,
             cl.cent.data_ptr(), cl.rad.data_ptr(), nc, cl.csize,
-            float(threshold_sq), out.data_ptr(), _cuda.stream_of(o_c)),
-            "ray_body_mask_clustered")
+            float(threshold_sq), out.data_ptr(), scratch.data_ptr(),
+            _cuda.stream_of(ray_o)), "ray_body_mask_clustered")
         _cuda.LAUNCHES["ray_body_mask_clustered"] += 1
     return out
+
+
+def ray_body_mask_clustered_attrs() -> dict:
+    """The CUDA kernel as built for the current device: registers and
+    spilled (local) bytes a thread."""
+    return _cuda.kernel_attrs("sherf_ray_body_mask_clustered_attrs")
 
 
 @torch.no_grad()
@@ -595,8 +616,8 @@ def ray_body_mask_clustered(ray_o: torch.Tensor, ray_d: torch.Tensor,
     if ray_d.shape != ray_o.shape or ray_d.dtype != torch.float32:
         raise ValueError("ray_d must match ray_o (N, 3) float32")
     cl = make_clusters(verts, C_SIZE, sorted_mean=True)
-    o_c = (ray_o - cl.ctr0).contiguous()
-    d = ray_d.contiguous()
     if ray_o.is_cuda:
-        return ray_body_mask_clustered_cuda(o_c, d, cl, threshold_sq)
-    return ray_body_mask_clustered_plain(o_c, d, cl, threshold_sq)[0]
+        return ray_body_mask_clustered_cuda(ray_o, ray_d, cl, threshold_sq)
+    return ray_body_mask_clustered_plain((ray_o - cl.ctr0).contiguous(),
+                                         ray_d.contiguous(), cl,
+                                         threshold_sq)[0]

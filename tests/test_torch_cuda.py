@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from sherf_tpu_torch.device_ops import device_work
 from sherf_tpu_torch.kernels import compaction, knn, knn_cluster, segment_accum
 from sherf_tpu_torch.smpl import synthetic_smpl
 
@@ -690,67 +691,220 @@ def test_clustered_nn_kernels_ties_in_cooperative_scan(dev, where):
         _clustered_nn_bit_equal(dev, q, verts)
 
 
-def _device_ops(fn, reps=10):
-    """Kernels, memsets and copies a call of fn issues (profiler; the first
-    window is a warm-up, the second is read)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    ev = [e for e in prof.key_averages()
-          if e.device_type != torch.autograd.DeviceType.CPU]
-    return sum(e.count for e in ev) / reps
+def _frame_layout(o, d, dev):
+    """(N, 3) views in the frame's layout: the origins of a (1, N, 3) batch
+    tensor stored as (1, 3, N), read at strides (1, N); the directions as
+    columns 3:6 of (N, 8) rows."""
+    n = o.shape[0]
+    o_v = torch.from_numpy(np.ascontiguousarray(o.T)).to(dev)[None].transpose(
+        1, 2)[0]
+    buf = torch.zeros((n, 8), dtype=torch.float32, device=dev)
+    buf[:, 3:6] = torch.from_numpy(d).to(dev)
+    return o_v, buf[:, 3:6]
 
 
 def test_clustered_wrappers_device_ops(dev):
-    """Each public clustered wrapper is at most 4 device operations a call:
-    the prep kernel, a memset and the kernel (B5, B6), or the prep, the
-    origins' centring and the kernel (B7)."""
+    """Each public clustered wrapper is 3 device operations a call: the
+    prep kernel, a memset and its kernel; for B7 also on the frame's
+    strided rays (no centring, no copy)."""
     rng = np.random.RandomState(4)
     verts = torch.from_numpy(_smpl_body(2)).to(dev)
     q = torch.from_numpy(_cluster_queries("near", verts.cpu().numpy(), rng,
                                           20_000)).to(dev)
     d = (q - verts[:1]).contiguous()
+    o_v, d_v = _frame_layout(q.cpu().numpy(), d.cpu().numpy(), dev)
+    assert not o_v.is_contiguous() and not d_v.is_contiguous()
     for call in (lambda: knn_cluster.nn_1_clustered(q, verts),
                  lambda: knn_cluster.nn_1_shortlist(q, verts),
                  lambda: knn_cluster.ray_body_mask_clustered(q, d, verts,
+                                                             0.05 ** 2),
+                 lambda: knn_cluster.ray_body_mask_clustered(o_v, d_v, verts,
                                                              0.05 ** 2)):
-        assert round(_device_ops(call)) == 3
+        assert round(device_work(call, reps=10)["ops_per_call"]) == 3
 
 
+def _rbmc_rays(rng, verts, n, origin):
+    """n rays aimed at the body: one camera origin ("shared"), each origin
+    moved along its own ray ("spread"), or every third one moved, so that
+    a unit of 32 mixes both ("mixed")."""
+    o, d = _rays_at(rng, verts, n, "camera")
+    if origin != "shared":
+        move = rng.uniform(-0.3, 0.3, (n, 1)).astype(np.float32)
+        if origin == "mixed":
+            move[np.arange(n) % 3 != 0] = 0.0
+        o = (o + d * move).astype(np.float32)
+    return o, d
+
+
+def _rbmc_equal(dev, o, d, verts, thr, csize=None, layout=None):
+    """B7's kernel on raw rays (contiguous, or in the given layout) against
+    its plain version on the same kernel-made Clusters (masks equal); at
+    the default cluster size the public wrapper too.  Returns the mask."""
+    csize = csize or knn_cluster.C_SIZE
+    vt = torch.from_numpy(verts).to(dev)
+    ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    o_k, d_k = (ot, dt) if layout is None else layout
+    cl = knn_cluster.make_clusters(vt, csize, sorted_mean=True)
+    before = knn._cuda.LAUNCHES["ray_body_mask_clustered"]
+    mk = knn_cluster.ray_body_mask_clustered_cuda(o_k, d_k, cl, thr)
+    mp, _ = knn_cluster.ray_body_mask_clustered_plain(
+        (ot - cl.ctr0).contiguous(), dt, cl, thr)
+    torch.cuda.synchronize()
+    assert knn._cuda.LAUNCHES["ray_body_mask_clustered"] == before + (len(o) > 0)
+    assert mk.dtype == torch.bool and mk.shape == (len(o),)
+    assert torch.equal(mk, mp)
+    if csize == knn_cluster.C_SIZE:
+        assert torch.equal(knn_cluster.ray_body_mask_clustered(o_k, d_k, vt, thr),
+                           mp)
+    return mk
+
+
+@pytest.mark.parametrize("origin", ["shared", "spread", "mixed"])
 @pytest.mark.parametrize("body", ["random", "smpl"])
-@pytest.mark.parametrize("n,kind", [(0, "hit"), (1, "hit"), (70_001, "hit"),
-                                    (4097, "miss")])
-def test_ray_body_mask_clustered_kernel_equals_plain(dev, body, n, kind):
+@pytest.mark.parametrize("n,kind", [
+    (0, "hit"), (1, "hit"), (31, "hit"), (32, "hit"), (33, "hit"),
+    (255, "hit"), (257, "hit"), (70_001, "hit"), (262_144, "hit"),
+    (4097, "miss")])
+def test_ray_body_mask_clustered_kernel_equals_plain(dev, body, n, kind,
+                                                     origin):
+    """Kernel == plain version (and wrapper == plain) at N around one unit
+    of 32 rays, a partial last unit, and the frame's 262,144; origins
+    shared, spread or mixed within a unit; off the f32 borderline the full
+    scan agrees."""
     rng = np.random.RandomState(n + 7)
     verts = _cluster_body(body, rng)
-    o = np.tile(np.asarray([[0.1, 0.2, -1.0]], np.float32), (n, 1))
-    tgt = verts[rng.randint(0, len(verts), n)] + rng.randn(n, 3).astype(np.float32) * 0.2
+    o, d = _rbmc_rays(rng, verts, n, origin)
     if kind == "miss":                     # every line passes far from the body
         tgt = o + np.asarray([[5.0, 0.0, 0.3]], np.float32) + rng.randn(n, 3) * 0.1
-    d = (tgt - o).astype(np.float32)
-    ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
-    vt = torch.from_numpy(verts).to(dev)
-    cl = knn_cluster.make_clusters(vt, knn_cluster.C_SIZE, sorted_mean=True)
-    o_c = (ot - cl.ctr0).contiguous()
-    thr = (0.05 + 1e-3) ** 2
-    mk = knn_cluster.ray_body_mask_clustered_cuda(o_c, dt, cl, thr)
-    mp, _ = knn_cluster.ray_body_mask_clustered_plain(o_c, dt, cl, thr)
-    torch.cuda.synchronize()
-    assert torch.equal(mk, mp)
-    full = knn.ray_body_mask(ot, dt, vt, thr)
+        d = (tgt - o).astype(np.float32)
+    mk = _rbmc_equal(dev, o, d, verts, THR)
+    full = knn.ray_body_mask(torch.from_numpy(o).to(dev),
+                             torch.from_numpy(d).to(dev),
+                             torch.from_numpy(verts).to(dev), THR)
     # off the f32 borderline the full scan agrees (centring differs)
     assert int((mk != full).sum()) <= max(1, n // 10000)
     if kind == "miss":
         assert not bool(mk.any())
-    elif n > 1:
+    elif n > 100:
         assert 0 < int(mk.sum()) < n
+
+
+@pytest.mark.parametrize("origin", ["shared", "spread"])
+@pytest.mark.parametrize("v", [5037, "max"])
+@pytest.mark.parametrize("csize", [32, 64, 128, 256])
+def test_ray_body_mask_clustered_kernel_cluster_sizes(dev, csize, v, origin):
+    """Clusters of 32 (216 of them at SMPL's size), 64, 128 (a pass) and
+    256 (two passes); V not a multiple of any, and the most vertices the
+    kernel's shared memory holds beside the cluster table."""
+    if v == "max":
+        cap = knn._cuda.library().sherf_knn_max_vertices()
+        v = max(x for x in range(cap - cap // csize - 2, cap + 1)
+                if x + -(-x // csize) <= cap)
+    rng = np.random.RandomState(csize + 3)
+    verts = _verts(rng, v)
+    o, d = _rbmc_rays(rng, verts, 20_000, origin)
+    m = _rbmc_equal(dev, o, d, verts, THR, csize=csize)
+    assert 0 < int(m.sum()) < len(o)
+
+
+@pytest.mark.parametrize("origin", ["shared", "spread"])
+def test_ray_body_mask_clustered_kernel_odd_rays(dev, origin):
+    """NaN in origins and directions (a whole unit's, and single rays'),
+    zero-length directions (the 1e-12 clamp) and rays parked at 1e6 m (the
+    budget's padding), spread over units."""
+    rng = np.random.RandomState(8)
+    verts = _smpl_body(5)
+    n = 5000
+    o, d = _rbmc_rays(rng, verts, n, origin)
+    d[100:140] = 0.0
+    d[3000] = 0.0
+    o[600:900] = 1e6
+    o[4100:4400] = 1e6
+    d[4100:4400] = [1.0, -2.0, 0.5]
+    o[1234, 1] = np.nan
+    d[2345, 2] = np.nan
+    o[2496:2528] = np.nan                  # one whole unit
+    m = _rbmc_equal(dev, o, d, verts, THR).cpu().numpy()
+    assert not m[[1234, 2345]].any() and not m[2496:2528].any()
+    assert not m[600:900].any() and not m[4100:4400].any()
+
+
+@pytest.mark.parametrize("origin", ["shared", "spread"])
+def test_ray_body_mask_clustered_kernel_on_the_threshold(dev, origin):
+    """A ray whose line minimum (every row of the Clusters, the plain
+    version's operations) equals thr fails the strict '<'; with the minimum
+    one ulp below thr it passes."""
+    rng = np.random.RandomState(9)
+    verts = _smpl_body(6)
+    o, d = _rbmc_rays(rng, verts, 600, origin)
+    vt = torch.from_numpy(verts).to(dev)
+    cl = knn_cluster.make_clusters(vt, knn_cluster.C_SIZE, sorted_mean=True)
+    o_c = (torch.from_numpy(o).to(dev) - cl.ctr0).contiguous()
+    d_t = torch.from_numpy(d).to(dev)
+    dd_inv, _ = knn_cluster.ray_cluster_bounds(o_c, d_t, cl)
+    dmin = knn_cluster._line_terms(o_c, d_t, dd_inv, cl.vs).amin(1).cpu().numpy()
+    r = int(np.argmin(np.abs(dmin - THR)))
+    for thr, want in ((dmin[r], False),
+                      (np.nextafter(dmin[r], np.float32(np.inf)), True)):
+        m = _rbmc_equal(dev, o, d, verts, float(thr))
+        assert bool(m[r]) is want
+
+
+@pytest.mark.parametrize("layout", ["frame", "transposed", "expanded",
+                                    "offset"])
+def test_ray_body_mask_clustered_kernel_strided_rays(dev, layout):
+    """The kernel reads rays in place at any strides: the frame's layout
+    (origins at strides (1, N), directions as columns of wider rows), both
+    transposed, one origin broadcast at stride 0, and views at a storage
+    offset.  Each equals the plain version on contiguous copies."""
+    rng = np.random.RandomState(13)
+    verts = _smpl_body(4)
+    n = 70_001
+    o, d = _rbmc_rays(rng, verts, n, "shared")
+    ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    if layout == "frame":
+        views = _frame_layout(o, d, dev)
+    elif layout == "transposed":
+        views = (ot.t().contiguous().t(), dt.t().contiguous().t())
+    elif layout == "expanded":
+        views = (ot[:1].expand(n, 3), dt)
+    else:
+        buf = torch.cat([dt[:7], ot, dt]).contiguous()
+        views = (buf[7:7 + n], buf[7 + n:])
+    assert torch.equal(views[0], ot) and torch.equal(views[1], dt)
+    m = _rbmc_equal(dev, o, d, verts, THR, layout=views)
+    assert 0 < int(m.sum()) < n
+
+
+def test_ray_body_mask_clustered_kernel_two_streams(dev):
+    """Two calls with different inputs on two streams, queued without a
+    synchronise: each has its own unit counter."""
+    rng = np.random.RandomState(10)
+    verts = torch.from_numpy(_smpl_body(8)).to(dev)
+    cl = knn_cluster.make_clusters(verts, knn_cluster.C_SIZE, sorted_mean=True)
+    calls = []
+    torch.cuda.synchronize()
+    for n, origin in ((262_144, "shared"), (70_001, "spread")):
+        o, d = _rbmc_rays(rng, verts.cpu().numpy(), n, origin)
+        ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+        calls.append((ot, dt, torch.cuda.Stream()))
+    torch.cuda.synchronize()
+    outs = []
+    for ot, dt, st in calls:
+        with torch.cuda.stream(st):
+            outs.append(knn_cluster.ray_body_mask_clustered_cuda(ot, dt, cl,
+                                                                 THR))
+    torch.cuda.synchronize()
+    for (ot, dt, _), mk in zip(calls, outs):
+        mp, _ = knn_cluster.ray_body_mask_clustered_plain(
+            (ot - cl.ctr0).contiguous(), dt, cl, THR)
+        assert torch.equal(mk, mp)
+
+
+def test_ray_body_mask_clustered_attrs(dev):
+    attrs = knn_cluster.ray_body_mask_clustered_attrs()
+    # one block of 1,024 threads an SM: at most 64 registers a thread
+    assert 0 < attrs["registers"] <= 64 and attrs["local_bytes"] >= 0
 
 
 def test_clustered_wrappers_count_and_reject(dev):

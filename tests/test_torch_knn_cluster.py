@@ -388,6 +388,71 @@ def test_ray_body_mask_clustered_matches_pallas_kernel(kind, pallas_inputs):
     np.testing.assert_array_equal(m_t.numpy()[clear], full.numpy()[clear])
 
 
+def _borderline_rays(v64, origin, rng, n):
+    """Rays from ``origin`` whose line passes at sqrt(THR) (f64, to 1e-8
+    m^2) from its nearest vertex: 30 halvings between a direction through a
+    vertex and one 1.5 m off it.  Rays still hitting at 1.5 m are dropped."""
+    o = torch.tensor(origin, dtype=torch.float64).expand(n, 3)
+    on = v64[torch.from_numpy(rng.randint(0, v64.shape[0], n))]
+    off = torch.from_numpy(rng.randn(n, 3))
+    off = on + off / off.norm(dim=1, keepdim=True) * 1.5
+
+    def line_min(d):
+        w = v64[None] - o[:, None]
+        b = (w * d[:, None]).sum(-1)
+        return ((w * w).sum(-1) - b * b / (d * d).sum(-1)[:, None]).amin(1)
+    lo, hi = torch.zeros(n, dtype=torch.float64), torch.ones(n, dtype=torch.float64)
+    for _ in range(30):
+        mid = (lo + hi) / 2
+        inside = line_min(on + mid[:, None] * (off - on) - o) < THR
+        lo, hi = torch.where(inside, mid, lo), torch.where(inside, hi, mid)
+    d = on + lo[:, None] * (off - on) - o
+    ok = (line_min(d) - THR).abs() < 1e-8
+    return o[ok].numpy(), d[ok].numpy()
+
+
+@pytest.mark.parametrize("origins", ["shared", "spread"])
+def test_ray_body_mask_clustered_skip_rule_keeps_every_hit(origins):
+    """The plain B7 at its per-ray grain against an exhaustive scan of every
+    row of the same Clusters with the same _line_terms operations, on an
+    SMPL body: rays from one camera through and around the body, and rays
+    whose line passes the body at the threshold (f32 minima within ~1e-6
+    m^2 of it, on both sides); "spread" moves each origin along its own ray.
+    The masks are equal (the skip rule dropped no hit), and each ray's
+    visits are the rows of the clusters its bound admits, in ascending
+    order, up to and including its first hit's cluster."""
+    rng = np.random.RandomState(12)
+    verts = np.array(j_synthetic_smpl(0).v_template, np.float32)
+    cl = kc.make_clusters(T(verts), kc.C_SIZE, sorted_mean=True)
+    cam = [[0.1, 0.2, -2.5]]
+    n = 1500
+    tgt = cl.vs.numpy()[rng.randint(0, len(verts), n)] + rng.randn(n, 3) * 0.1
+    o_b, d_b = _borderline_rays(cl.vs.double(), cam, rng, 256)
+    o = np.concatenate([np.repeat(cam, n, axis=0), o_b])
+    d = np.concatenate([tgt - cam, d_b])
+    if origins == "spread":
+        o = o + d * rng.uniform(-0.3, 0.3, (len(o), 1))
+    o_c, d_t = T(o.astype(np.float32)), T(d.astype(np.float32))
+    hit, visits = kc.ray_body_mask_clustered_plain(o_c, d_t, cl, THR)
+
+    thr = torch.tensor(THR, dtype=torch.float32)
+    dd_inv, lb = kc.ray_cluster_bounds(o_c, d_t, cl)
+    dist = kc._line_terms(o_c, d_t, dd_inv, cl.vs)
+    assert torch.equal(hit, (dist < thr).any(dim=1))
+    near = (dist.amin(dim=1) - thr).abs() < 1e-5
+    assert int(near.sum()) >= 100 and 0 < int(hit[near].sum()) < int(near.sum())
+    C, cs = cl.cent.shape[0], cl.csize
+    pad = torch.nn.functional.pad(dist, (0, C * cs - dist.shape[1]),
+                                  value=float("inf"))
+    in_c = (pad.reshape(-1, C, cs) < thr).any(dim=2)              # (N, C)
+    admitted = lb < thr
+    first = torch.where((admitted & in_c).any(dim=1),
+                        (admitted & in_c).int().argmax(dim=1), C)
+    upto = torch.arange(C)[None] <= first[:, None]
+    assert torch.equal(visits.long(), ((admitted & upto) * cl.rows).sum(dim=1))
+    assert int(visits.sum()) < len(o) * len(verts) // 4
+
+
 # ---- dispatch ----------------------------------------------------------------
 
 def test_dispatch_follows_the_switches_and_the_vertex_count(monkeypatch):
