@@ -17,7 +17,18 @@ with random weights drawn from a seeded ``torch.Generator``:
     ``render.knn_shortlist = 8`` (phase ``shortlist_frame``);
   * training: five steps of ``make_train_step`` at batch 1 (phases
     ``train`` and ``train_profile``), then a 2-step ``training_loop`` that
-    writes stats.jsonl and a checkpoint (phase ``train_loop``).
+    writes stats.jsonl, a checkpoint and a sample grid (phase
+    ``train_loop``);
+  * the train -> snapshot -> eval lifecycle at the CLIs' defaults (f32,
+    synthetic_grid rig, phase ``lifecycle``): 4 ``training_loop`` steps
+    through ``build_dataset`` with calibrated budgets, a snapshot, then
+    ``sherf_tpu_torch.cli.eval.main`` on it (17 renders of subject100 with
+    PNGs and psnr_ / ssim_*.npy), each render's launches counted and its
+    item build, forward, metrics and PNG writes timed, one render profiled,
+    one item re-rendered outside ``run_eval`` bit-equal to a model restored
+    here from the snapshot's EMA, and each training subject and the
+    held-out subject100 and subject101 voxelized into the eval grid at its
+    caps against their own grid (sites cut off, overflow).
 
 For each path the launch counters are reset just before it and read just
 after, and must be what the path launches (the frame: 2 nn_1, 1
@@ -25,15 +36,16 @@ ray_body_mask, 6 compact_mask; cluster_frame: 2 nn_1_clustered, 1
 ray_body_mask_clustered, 3 cluster_prep, 6 compact_mask; shortlist_frame:
 2 nn_1_shortlist, 1 ray_body_mask_clustered, 3 cluster_prep, 6
 compact_mask; the train step, per step: 3 weighted_accumulate, 2 nn_1, 1
-ray_body_mask, 6 compact_mask).  It checks that each kernel agrees with
-its plain torch version on the inputs the paths gave it (indices, masks
-and compactions equal; squared distances bit-equal; the cluster prep's
-order, rows, centre, centroids and radii bit-equal; nn_1_shortlist's tile
-lists equal; the table gradient within the f32 reassociation bound of the
-same products summed in f64), that each public clustered wrapper issues
-at most 3 device operations a call (profiler; B7 on the frame's strided
-rays), that
-each clustered call agrees with the full-scan kernel on the same inputs,
+ray_body_mask, 6 compact_mask; each eval render of the lifecycle: the
+frame's).  It checks that each kernel agrees with its plain torch version
+on the inputs the paths gave it (every call of the frames, of the first
+train step, and of the lifecycle's first train step and first eval render:
+indices, masks and compactions equal; squared distances bit-equal; the
+cluster prep's order, rows, centre, centroids and radii bit-equal;
+nn_1_shortlist's tile lists equal; the table gradient within the f32
+reassociation bound of the same products summed in f64), that each public
+clustered wrapper issues at most 3 device operations a call (profiler; B7
+on the frame's strided rays), that each clustered call agrees with the full-scan kernel on the same inputs,
 that every frame is finite with every budget-overflow counter at zero and
 the clustered frames within 45 dB of the default frame, that the train
 steps have finite loss and gradient norm, zero overflow, move every
@@ -93,6 +105,10 @@ DEPTH = 48
 MARGIN = 1.15
 FRAME_ITERS = 5
 TRAIN_STEPS = 5
+# the lifecycle phase: train steps and the budget margin of
+# tools/lifecycle_artifact.sh
+LIFE_STEPS = 4
+LIFE_MARGIN = 1.5
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  The f32
 # rate counts an FMA as two operations; the knn kernels' distance code is
 # never contracted to FMAs, so each of its operations takes one issue slot
@@ -322,6 +338,441 @@ def grad_rel_errors(model_a, model_b, floor=1e-8):
         got = ref.new_zeros(ref.shape) if got is None else got.double().cpu()
         out[name] = float((got - ref).norm()) / norm
     return out
+
+
+def max_abs(a, b):
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def held_nn_1(torch, what, q_c, v_c):
+    """nn_1 on one recorded call against its plain version: indices equal,
+    d2 bit-equal.  Returns (case, max abs error)."""
+    from sherf_tpu_torch.kernels import knn
+    d2k, ik = knn.nn_1_cuda(q_c, v_c)
+    d2p, ip = knn.nn_1_plain(q_c, v_c)
+    torch.cuda.synchronize()
+    err = max_abs(d2k, d2p)
+    check(torch.equal(ik, ip), f"{what}: indices differ")
+    check(torch.equal(d2k, d2p), f"{what}: d2 not bit-equal (max abs err "
+          f"{err})")
+    return ({"n": q_c.shape[0], "v": v_c.shape[0], "equal": True},
+            max(err, max_abs(ik, ip)))
+
+
+def held_ray_body_mask(torch, what, o_c, d, v_c, thr, act):
+    """ray_body_mask on one recorded call against its plain version: masks
+    equal."""
+    from sherf_tpu_torch.kernels import knn
+    mk = knn.ray_body_mask_cuda(o_c, d, v_c, thr, act)
+    mp = knn.ray_body_mask_plain(o_c, d, v_c, thr, act)
+    torch.cuda.synchronize()
+    check(torch.equal(mk, mp), f"{what}: masks differ "
+          f"({int((mk != mp).sum())} rays)")
+    return ({"n": o_c.shape[0], "hits": int(mk.sum()), "equal": True},
+            max_abs(mk, mp))
+
+
+def held_compact_mask(torch, what, m, cap):
+    """compact_mask on one recorded call against its plain version: indices
+    and validity equal."""
+    from sherf_tpu_torch.kernels import compaction
+    ik, vk = compaction.compact_mask_cuda(m, cap)
+    ip, vp = compaction.compact_mask_plain(m, cap)
+    torch.cuda.synchronize()
+    check(torch.equal(ik, ip) and torch.equal(vk, vp),
+          f"{what} (n={m.shape[0]}, cap={cap}): differs")
+    return ({"n": m.shape[0], "cap": cap, "survivors": int(m.sum()),
+             "equal": True}, max(max_abs(ik, ip), max_abs(vk, vp)))
+
+
+def held_weighted_accumulate(torch, what, ids, w, g, n_rows):
+    """weighted_accumulate on one recorded call, within the f32
+    reassociation bound of the atomics' sum order, held against the same
+    deduplicated bf16 products summed in f64 (each product is exact in f32,
+    so that sum is true to ~1e-16; the plain version's own f32 index_add_
+    drifts by most of the bound on the zero row).  The case also says how
+    much of the bound the kernel uses against the true sum (bound_use), how
+    much the plain version uses (plain_use, its own f32 rounding, reported,
+    not checked), and how far a second run of the plain version (f32
+    atomics) lands from the first (plain_spread).  The error returned is
+    against the plain version."""
+    from sherf_tpu_torch.kernels import segment_accum as sa
+    got = sa.weighted_accumulate_cuda(ids, w, g, n_rows)
+    ref = sa.weighted_accumulate_plain(ids, w, g, n_rows)
+    ref64 = sa.weighted_accumulate_plain(ids, w, g, n_rows,
+                                         dtype=torch.float64)
+    mag = sa.weighted_accumulate_plain(ids, w.abs(), g.abs(), n_rows)
+    ref2 = sa.weighted_accumulate_plain(ids, w, g, n_rows)
+    torch.cuda.synchronize()
+    fin, bnd = torch.isfinite(ref64), (1e-5 * mag).clamp(min=1e-30)
+    use = {"bound_use": float(((got - ref64).abs() / bnd)[fin].max()),
+           "plain_use": float(((ref - ref64).abs() / bnd)[fin].max()),
+           "plain_spread": float(((ref2 - ref).abs() / bnd)[fin].max())}
+    e = max_abs(got, ref)
+    for same in (torch.isnan, torch.isposinf, torch.isneginf):
+        check(torch.equal(same(got), same(ref64)),
+              f"{what}: {same.__name__} entries differ from the f64 "
+              f"reference")
+    excess = float(((got - ref64).abs() - 1e-5 * mag)[fin].max())
+    check(excess <= 1e-30, f"{what}: |cuda - ref64| exceeds 1e-5 * "
+          f"plain(|w|, |g|) by {excess} (max abs err vs plain {e}; {use})")
+    return ({"n": ids.shape[0], "k": ids.shape[1], "c": g.shape[1],
+             "n_rows": n_rows, "max_abs_err": e, "within_bound": True,
+             **use}, e)
+
+
+HELD = {"nn_1": held_nn_1, "ray_body_mask": held_ray_body_mask,
+        "compact_mask": held_compact_mask,
+        "weighted_accumulate": held_weighted_accumulate}
+
+
+def held_calls(torch, calls, path, errs):
+    """Every call a Recorder kept (``calls``) held against its kernel's
+    plain version (``HELD``); raises ``errs[kernel]`` to each call's max
+    abs error and returns the cases."""
+    cases = []
+    for key, held in HELD.items():
+        for i, args in enumerate(calls.get(key, ())):
+            case, err = held(torch, f"{key} call {i} ({path})", *args)
+            errs[key] = max(errs[key], err)
+            cases.append({"kernel": key, "path": path, "call": i, **case})
+    return cases
+
+
+def grid_sites(torch, t_verts, shape, caps, voxel_size, dev):
+    """A canonical body (numpy) voxelized as the generator voxelizes it,
+    into a grid of ``shape``: its vertices inside the grid, and the
+    occupied sites and overflow of each sparse downsample at ``caps``."""
+    from sherf_tpu_torch.features.sparseconv import (
+        _inbounds, downsample_sites, voxelize_coords)
+    tv = torch.from_numpy(t_verts).to(dev)
+    coords = voxelize_coords(tv, (tv.amin(dim=0) - 0.05)[[2, 1, 0]],
+                             voxel_size)
+    valid = _inbounds(coords, shape)
+    inside = int(valid.sum())
+    sites, over = [], []
+    for cap in caps:
+        coords, valid, shape, ovf = downsample_sites(coords, valid, shape, cap)
+        over.append(int(ovf))
+        sites.append(int(valid.sum()) + over[-1])
+    return {"vertices_inside": inside, "sites": sites, "overflow": over}
+
+
+class Timed:
+    """Within ``with``: each listed (owner, attribute, key) callable is
+    wrapped to append its wall ms, between CUDA synchronises, to
+    ``ms[key]``; ``ms`` keeps the calls in order."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.ms = {key: [] for _, _, key in targets}
+        self._orig = []
+
+    def __enter__(self):
+        sync = self.torch.cuda.synchronize
+        for owner, attr, key in self.targets:
+            orig = getattr(owner, attr)
+            self._orig.append((owner, attr, orig))
+
+            def timed(*args, _orig=orig, _key=key, **kwargs):
+                sync()
+                ts = time.perf_counter()
+                out = _orig(*args, **kwargs)
+                sync()
+                self.ms[_key].append((time.perf_counter() - ts) * 1e3)
+                return out
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._orig):
+            setattr(owner, attr, orig)
+
+
+def lifecycle(torch, np, dev, smpl_d, out_dir, shims):
+    """The reference's central workflow (tools/lifecycle_artifact.sh) at the
+    CLIs' defaults (512x512x48, f32, backbone 256, 5 mm voxels, 4
+    sparse-conv layers, point budget 1/8) on the synthetic_grid rig:
+    ``training_loop`` through ``build_dataset`` for LIFE_STEPS steps at
+    batch 1 with budgets calibrated at margin 1.5, a snapshot, then
+    ``sherf_tpu_torch.cli.eval.main`` on it (8 novel-view and 9 novel-pose
+    renders of subject100).  Returns the phase's numbers, and the cases and
+    max abs errors of the kernel calls of its first train step and first
+    render, each held against its plain version (``held_calls``: these
+    calls are f32, at budgets calibrated at margin 1.5).  Fails unless
+    every PNG triple and metric file exists, every metric is finite, each
+    render launches the frame's kernels, those calls agree with their
+    plain versions, and one item re-rendered outside ``run_eval`` by the
+    CLI's render function is bit-equal to the forward of a model this
+    function restores from the snapshot's EMA itself.  Also reports each
+    training subject and the held-out subject100 and subject101 in the
+    eval grid and caps against their own grid."""
+    import argparse
+    import dataclasses
+    import warnings
+
+    from sherf_tpu_torch.cli import common as cli_common
+    from sherf_tpu_torch.cli import eval as eval_cli
+    from sherf_tpu_torch.cli.train import DATA_DEFAULTS
+    from sherf_tpu_torch.core.config import DataConfig, TrainConfig
+    from sherf_tpu_torch.data import collate
+    from sherf_tpu_torch.data.synthetic import SyntheticHumanDataset
+    from sherf_tpu_torch.eval import test_loop
+    from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
+    from sherf_tpu_torch.kernels import _cuda
+    from sherf_tpu_torch.models.generator import SHERFGenerator
+    from sherf_tpu_torch.train import loop as train_loop
+    from sherf_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                  restore_checkpoint)
+    from sherf_tpu_torch.train.train_state import create_train_state
+
+    flags = argparse.ArgumentParser()
+    cli_common.add_model_flags(flags)
+    cfg = cli_common.model_config_from_args(flags.parse_args([]))
+    check(cfg.compute_dtype == "float32" and cfg.backbone_resolution == 256
+          and cfg.render.depth_resolution == 48, f"CLI defaults {cfg}")
+    run_dir = os.path.join(out_dir, "run")
+    dcfg = DataConfig(name="synthetic_grid", image_scaling=1.0,
+                      **DATA_DEFAULTS["synthetic_grid"])
+    tcfg = TrainConfig(total_kimg=LIFE_STEPS / 1000, batch_size=1, lr=1e-3,
+                       snapshot_ticks=100, outdir=run_dir)
+
+    # ---- train: each step timed and its launches counted, the first
+    # step's kernel calls kept
+    step_ms, step_launches = [], []
+    orig_make = train_loop.make_train_step
+    rec_train = Recorder(shims)
+    rec_train.on = False
+
+    def make_counted_step(*args, **kwargs):
+        step = orig_make(*args, **kwargs)
+
+        def counted(*sargs):
+            seen = dict(_cuda.LAUNCHES)
+            torch.cuda.synchronize()
+            rec_train.on = not step_ms
+            ts = time.perf_counter()
+            out = step(*sargs)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            rec_train.on = False
+            step_launches.append({k: _cuda.LAUNCHES[k] - seen[k] for k in seen})
+            return out
+        return counted
+
+    t_train = time.perf_counter()
+    train_loop.make_train_step = make_counted_step
+    try:
+        with rec_train:
+            _cuda.reset_launches()
+            state = train_loop.training_loop(cfg, tcfg, dcfg, smpl_d,
+                                             calibrate=LIFE_MARGIN, device=dev)
+            torch.cuda.synchronize()
+            train_launches = dict(_cuda.LAUNCHES)
+    finally:
+        train_loop.make_train_step = orig_make
+    train_s = time.perf_counter() - t_train
+    snap = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+    check(state.step == LIFE_STEPS and snap is not None
+          and snap.endswith(f"snapshot-{LIFE_STEPS:06d}.pt"),
+          f"lifecycle training: step {state.step}, snapshot {snap}")
+    check(os.path.exists(os.path.join(run_dir, f"fakes{LIFE_STEPS:06d}.png")),
+          "lifecycle training wrote no sample grid")
+    check(all(n == TRAIN_LAUNCHES for n in step_launches),
+          f"lifecycle train step launches {step_launches}")
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        loss = [json.loads(x) for x in f if "Loss/loss" in x]
+    check(loss and all(np.isfinite(x["Loss/loss"]) and x["Loss/overflow"] == 0
+                       for x in loss), f"lifecycle training metrics {loss}")
+    train_out_sh = state.model.renderer.out_sh
+    train_caps = state.model.cfg.sparse_caps
+    train_budgets = dataclasses.asdict(state.model.cfg.render)
+    del state
+    torch.cuda.empty_cache()
+
+    # ---- eval: the CLI on the snapshot, every render counted and timed,
+    # the first render's kernel calls kept; the calibration sweep timed
+    eval_dir = os.path.join(out_dir, "eval")
+    seen = {}
+    renders = []
+    orig_run_eval, orig_build = test_loop.run_eval, eval_cli.build_model
+    orig_calibrated = eval_cli.calibrated_config
+    rec_eval = Recorder(shims)
+    rec_eval.on = False
+
+    def build_recorded(*args, **kwargs):
+        seen["model"] = orig_build(*args, **kwargs)
+        return seen["model"]
+
+    def calibrated_timed(*args, **kwargs):
+        items = len(timers.ms["item"])
+        ts = time.perf_counter()
+        out = orig_calibrated(*args, **kwargs)
+        seen["calibration_s"] = time.perf_counter() - ts
+        seen["calibration_items"] = len(timers.ms["item"]) - items
+        return out
+
+    def run_eval_counted(render_fn, make_dataset, *args, **kwargs):
+        seen["render_fn"], seen["make_dataset"] = render_fn, make_dataset
+
+        def render(batch):
+            before = dict(_cuda.LAUNCHES)
+            rec_eval.on = not renders
+            out = render_fn(batch)
+            rec_eval.on = False
+            renders.append({k: _cuda.LAUNCHES[k] - before[k] for k in before})
+            return out
+        return orig_run_eval(render, make_dataset, *args, **kwargs)
+
+    argv = ["--cfg", "synthetic_grid", "--data", "subject100",
+            "--subjects", "subject100", "--resume", snap, "--outdir", eval_dir,
+            "--calibrate_budgets", "true", "--calibrate_margin",
+            str(LIFE_MARGIN)]
+    timers = Timed(torch, [
+        (SyntheticHumanDataset, "__getitem__", "item"),
+        (test_loop, "collate", "collate"),
+        (test_loop, "_render_item", "render"),
+        (test_loop, "psnr_np", "psnr"), (test_loop, "crop_metrics", "ssim"),
+        (test_loop, "write_png", "png")])
+    t_eval = time.perf_counter()
+    test_loop.run_eval, eval_cli.build_model = run_eval_counted, build_recorded
+    eval_cli.calibrated_config = calibrated_timed
+    try:
+        with timers, rec_eval:
+            _cuda.reset_launches()
+            results = eval_cli.main(argv)
+            torch.cuda.synchronize()
+            eval_launches = dict(_cuda.LAUNCHES)
+    finally:
+        test_loop.run_eval, eval_cli.build_model = orig_run_eval, orig_build
+        eval_cli.calibrated_config = orig_calibrated
+    eval_s = time.perf_counter() - t_eval
+
+    files = sorted(os.path.relpath(os.path.join(d, f), eval_dir)
+                   for d, _, fs in os.walk(eval_dir) for f in fs)
+    inputs = [f[:-len("_input.png")] for f in files if f.endswith("_input.png")]
+    check(len(renders) == 17 and len(inputs) == 17,
+          f"lifecycle eval: {len(renders)} renders, {len(inputs)} PNG triples")
+    check(all(f"{t}.png" in files and f"{t}_gt.png" in files for t in inputs),
+          "lifecycle eval: a PNG triple is incomplete")
+    metric_files = [f for f in files if f.endswith(".npy")]
+    for protocol in ("novel_view", "novel_pose"):
+        for where in (protocol, f"{protocol}/obs_view_0/subject100"):
+            for key in ("psnr", "ssim"):
+                check(any(os.path.dirname(f) == where
+                          and os.path.basename(f).startswith(key + "_")
+                          for f in metric_files),
+                      f"lifecycle eval: no {where}/{key}_*.npy")
+        check(all(np.isfinite(results[protocol][k]) for k in ("psnr", "ssim")),
+              f"lifecycle eval: {protocol} metrics {results[protocol]}")
+    check(all(np.isfinite(np.load(os.path.join(eval_dir, f))).all()
+              for f in metric_files), "lifecycle eval: a non-finite metric")
+    check(all(r == FRAME_LAUNCHES for r in renders),
+          f"lifecycle eval: launches per render {renders}")
+
+    # ---- the kernel calls of the first train step and the first render,
+    # each against its plain version
+    for rec, expect, what in ((rec_train, TRAIN_LAUNCHES, "train step"),
+                              (rec_eval, FRAME_LAUNCHES, "render")):
+        kept = {k: len(v) for k, v in rec.calls.items()}
+        check(kept == {k: expect[k] for k in kept},
+              f"lifecycle: {kept} kernel calls kept from the first {what}")
+    errs = dict.fromkeys(HELD, 0.0)
+    cases = (held_calls(torch, rec_train.calls, "lifecycle_train", errs)
+             + held_calls(torch, rec_eval.calls, "lifecycle_eval", errs))
+    rec_train.calls.clear()
+    rec_eval.calls.clear()
+
+    # ---- one item re-rendered outside run_eval, against a model restored
+    # here from the snapshot's EMA (deterministic index_add_ on both)
+    _, eval_out_sh, eval_cfg = seen["model"]
+    ds = seen["make_dataset"]("subject100", 0, 1, 4)
+    ds.obs_view_index = 0
+    batch = collate([ds[2]], dev)
+    own = SHERFGenerator(eval_cfg, out_sh=eval_out_sh, device=dev)
+    ema = restore_checkpoint(snap, create_train_state(own, TrainConfig())).ema
+    with torch.no_grad():
+        for name, p in own.named_parameters():
+            p.copy_(ema[name])
+    own.eval()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            via_cli = seen["render_fn"](batch)["image_raw"]
+            with torch.inference_mode():
+                mine, diag = own(batch, smpl_d)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    check(all(int(v) == 0 for v in diag.values()), "re-render overflow")
+    check(torch.equal(via_cli, mine["image_raw"]),
+          "the eval CLI's render is not bit-equal to the restored EMA "
+          f"model's (max abs err "
+          f"{float((via_cli - mine['image_raw']).abs().max())})")
+    del own, ema, mine
+    prof = profiled(lambda: seen["render_fn"](batch), torch, FRAME_LAUNCHES)
+
+    # ---- does each subject fit the eval grid (sized from the default body,
+    # as the JAX CLI does) and its sparse caps?  Each training subject and
+    # the held-out subject100 and subject101, voxelized as the generator
+    # does into the eval grid at the eval caps and into its own padded grid
+    # (nothing cut off) at no cap
+    bodies = [(f"subject{i}", tv) for i, tv in enumerate(
+        train_loop.build_dataset(dcfg, smpl_d).subject_bodies())]
+    bodies += [(name, seen["make_dataset"](name, 0, 1, 1).subject_bodies()[0])
+               for name in ("subject100", "subject101")]
+    vs = eval_cfg.voxel_size
+    fit = {}
+    for name, tv in bodies:
+        own_sh = prepare_voxel_volume(tv, voxel_size=vs)[1]
+        ev = grid_sites(torch, tv, tuple(eval_out_sh), eval_cfg.sparse_caps,
+                        vs, dev)
+        own = grid_sites(torch, tv, own_sh, (tv.shape[0] * 8,) * 3, vs, dev)
+        fit[name] = {"own_grid": list(own_sh), "eval": ev,
+                     "own_sites": own["sites"],
+                     "sites_lost": [a - b for a, b in zip(own["sites"],
+                                                          ev["sites"])]}
+    ms = timers.ms
+    # _render_item: collate, the forward, the outputs' copy to the host
+    forward_ms = [r - c for r, c in zip(ms["render"], ms["collate"])]
+    per_render = lambda key: statistics.median(ms[key]) if ms[key] else None
+    return {
+        "train_steps": LIFE_STEPS, "train_step_ms": step_ms,
+        "train_step_ms_median_2_4": statistics.median(step_ms[1:]),
+        "train_seconds": round(train_s, 3), "train_launches": train_launches,
+        "train_budgets": {k: train_budgets[k] for k in (
+            "ray_capacity_frac", "point_capacity_frac",
+            "exact_capacity_frac", "prune_step_margin")},
+        "eval_seconds": round(eval_s, 3), "eval_launches": eval_launches,
+        "renders": len(renders), "launches_per_render": renders[0],
+        "results": results, "metric_files": len(metric_files),
+        "pngs": sum(f.endswith(".png") for f in files),
+        "render_ms_median": {
+            "item": per_render("item"), "collate": per_render("collate"),
+            "forward_and_readback": statistics.median(forward_ms),
+            "psnr": per_render("psnr"), "ssim": per_render("ssim"),
+            "png_per_file": per_render("png")},
+        "items_built": len(ms["item"]),
+        "eval_budgets": {k: getattr(eval_cfg.render, k) for k in (
+            "ray_capacity_frac", "point_capacity_frac",
+            "exact_capacity_frac", "prune_step_margin")},
+        "rerender_bit_equal": True,
+        "forward_profiled": {k: prof[k] for k in (
+            "wall_ms_profiled", "device_busy_ms", "device_idle_share",
+            "kernel_launches", "port_kernels_ms")},
+        "calibration_seconds": round(seen["calibration_s"], 3),
+        "calibration_items_built": seen["calibration_items"],
+        "grid_fit": {"eval_out_sh": list(eval_out_sh),
+                     "train_out_sh": list(train_out_sh),
+                     "eval_caps": list(eval_cfg.sparse_caps),
+                     "train_caps": list(train_caps),
+                     "vertices": bodies[0][1].shape[0],
+                     "subjects_losing_sites": sorted(
+                         n for n, f in fit.items() if any(f["sites_lost"])),
+                     "subjects_overflowing": sorted(
+                         n for n, f in fit.items() if any(f["eval"]["overflow"])),
+                     "subjects": fit},
+    }, cases, errs
 
 
 def main():
@@ -599,7 +1050,7 @@ def main():
     errs = {k: 0.0 for k in PORT_KERNELS}
 
     def note_err(key, a, b):
-        e = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+        e = max_abs(a, b)
         errs[key] = max(errs[key], e)
         return e
 
@@ -611,24 +1062,14 @@ def main():
     def by_path(key):
         return {p: launches[p][key] for p in launches}
 
+    # every call of the frame and of one train step against its plain
+    # version; the frame's point-budget nn_1 call timed
+    cases += held_calls(torch, rec_frame.calls, "frame", errs)
+    cases += held_calls(torch, rec_train.calls, "train", errs)
     recorded = {k: rec_frame.calls[k] + rec_train.calls[k]
                 for k in ("nn_1", "ray_body_mask", "compact_mask")}
-    nn1_tile, coop = _cuda.library().sherf_nn1_tile(), []
-    # nn_1: every call of the frame and of one train step checked; the
-    # frame's point-budget call timed
-    for i, (q_c, v_c) in enumerate(recorded["nn_1"]):
-        d2k, ik = knn.nn_1_cuda(q_c, v_c)
-        d2p, ip = knn.nn_1_plain(q_c, v_c)
-        torch.cuda.synchronize()
-        err = note_err("nn_1", d2k, d2p)
-        note_err("nn_1", ik, ip)
-        check(torch.equal(ik, ip), f"nn_1 call {i}: indices differ")
-        check(torch.equal(d2k, d2p), f"nn_1 call {i}: d2 not bit-equal "
-              f"(max abs err {err})")
-        coop.append(coop_queries(q_c, nn1_tile, torch))
-        cases.append({"kernel": "nn_1", "call": i, "n": q_c.shape[0],
-                      "v": v_c.shape[0], "equal": True,
-                      "coop_queries": coop[-1]})
+    nn1_tile = _cuda.library().sherf_nn1_tile()
+    coop = [coop_queries(q_c, nn1_tile, torch) for q_c, _ in recorded["nn_1"]]
     q_c, v_c = recorded["nn_1"][0]
     n, nv = q_c.shape[0], v_c.shape[0]
     chunk = max(1, int(4e9 // (nv * 4)))  # cdist output <= 4 GB per call
@@ -644,7 +1085,8 @@ def main():
         # FMA-counted peak
         "no_fma_ceiling_ms": n * nv * NN1_OPS_PER_PAIR / (PEAK_F32_FLOPS / 2)
         * 1e3,
-        "coop_queries": coop[0], "tile": nn1_tile,
+        "coop_queries": coop[0], "coop_queries_by_call": coop,
+        "tile": nn1_tile,
         "replaces": "sherf_tpu/kernels/knn_pallas.py:608",
         "launches": launches["frame"]["nn_1"], "launches_by_path": by_path("nn_1"),
         "max_abs_err": errs["nn_1"],
@@ -654,15 +1096,6 @@ def main():
         "library_ms": cuda_ms(nn1_library, 3, torch), "n": n, "v": nv})
 
     # ray_body_mask
-    for i, (o_c, d, v_c, thr, act) in enumerate(recorded["ray_body_mask"]):
-        mk = knn.ray_body_mask_cuda(o_c, d, v_c, thr, act)
-        mp = knn.ray_body_mask_plain(o_c, d, v_c, thr, act)
-        torch.cuda.synchronize()
-        note_err("ray_body_mask", mk, mp)
-        check(torch.equal(mk, mp), f"ray_body_mask call {i}: masks differ "
-              f"({int((mk != mp).sum())} rays)")
-        cases.append({"kernel": "ray_body_mask", "call": i, "n": o_c.shape[0],
-                      "equal": True})
     o_c, d, v_c, thr, act = recorded["ray_body_mask"][0]
     n, nv = o_c.shape[0], v_c.shape[0]
     tile = knn.RAY_TILE
@@ -681,14 +1114,11 @@ def main():
     # share an origin, so every pair takes all 17 operations
     o_s = (o_c + d * torch.linspace(-0.3, 0.3, n, device=dev)[:, None]
            ).contiguous()
-    mk = knn.ray_body_mask_cuda(o_s, d, v_c, thr, act)
-    mp = knn.ray_body_mask_plain(o_s, d, v_c, thr, act)
-    torch.cuda.synchronize()
-    note_err("ray_body_mask", mk, mp)
-    check(torch.equal(mk, mp), f"ray_body_mask, origins spread: masks differ "
-          f"({int((mk != mp).sum())} rays)")
-    cases.append({"kernel": "ray_body_mask", "call": "origins_spread", "n": n,
-                  "equal": True, "hits": int(mk.sum())})
+    case, err = held_ray_body_mask(torch, "ray_body_mask, origins spread",
+                                   o_s, d, v_c, thr, act)
+    errs["ray_body_mask"] = max(errs["ray_body_mask"], err)
+    cases.append({"kernel": "ray_body_mask", "path": "frame",
+                  "call": "origins_spread", **case})
     rows.append({
         "name": "ray_body_mask", "route": "cuda",
         "source": "sherf_tpu_torch/csrc/knn.cu",
@@ -712,8 +1142,7 @@ def main():
         **knn.ray_body_mask_attrs()})
     del o_s
 
-    # compact_mask: every call of the frame and of one train step, plus the
-    # frame's occupancy over all 512*512*48 samples (what the point
+    # compact_mask: the frame's occupancy over all 512*512*48 samples (what the point
     # compaction reads without ray compaction) at the point budget
     from sherf_tpu_torch.kernels.occupancy import strided_occupancy
     from sherf_tpu_torch.nerf.renderer import linspace01
@@ -726,17 +1155,11 @@ def main():
             stride=fitted.prune_stride, step_margin=fitted.prune_step_margin)
         del pts, dv
     point_cap = recorded["compact_mask"][1][1]
-    calls = recorded["compact_mask"] + [(full_mask, point_cap)]
-    for i, (m, cap) in enumerate(calls):
-        ik, vk = compaction.compact_mask_cuda(m, cap)
-        ip, vp = compaction.compact_mask_plain(m, cap)
-        torch.cuda.synchronize()
-        note_err("compact_mask", ik, ip)
-        note_err("compact_mask", vk, vp)
-        check(torch.equal(ik, ip) and torch.equal(vk, vp),
-              f"compact_mask call {i} (n={m.shape[0]}, cap={cap}): differs")
-        cases.append({"kernel": "compact_mask", "call": i, "n": m.shape[0],
-                      "cap": cap, "survivors": int(m.sum()), "equal": True})
+    case, err = held_compact_mask(torch, "compact_mask, full occupancy",
+                                  full_mask, point_cap)
+    errs["compact_mask"] = max(errs["compact_mask"], err)
+    cases.append({"kernel": "compact_mask", "path": "frame",
+                  "call": "full_occupancy", **case})
 
     def per_launch(fn):
         """compact_mask's kernel and memset ms and counts a call; fails
@@ -800,16 +1223,14 @@ def main():
         "frame_bound_ms": sum(c["bound_ms"] for c in frame_calls)})
     del full_mask
 
-    # weighted_accumulate: every call of the first train step, within the
-    # f32 reassociation bound of the atomics' sum order, held against the
-    # same deduplicated bf16 products summed in f64 (each product is exact
-    # in f32, so that sum is true to ~1e-16; the plain version's own f32
-    # index_add_ drifts by most of the bound on the zero row)
+    # weighted_accumulate: each call of the first train step (held above)
+    # with its shape, zero-row share, split and time
     wa_calls = rec_train.calls["weighted_accumulate"]
     check(len(wa_calls) == TRAIN_LAUNCHES["weighted_accumulate"],
           f"{len(wa_calls)} weighted_accumulate calls recorded in step 1")
+    wa_held = [c for c in cases if c["kernel"] == "weighted_accumulate"]
     wa_by_call = []
-    for i, (ids, w, g, n_rows) in enumerate(wa_calls):
+    for (ids, w, g, n_rows), held in zip(wa_calls, wa_held):
         wa_by_call.append({
             "n": ids.shape[0], "k": ids.shape[1], "c": g.shape[1],
             "n_rows": n_rows,
@@ -818,39 +1239,9 @@ def main():
             "tiling": segment_accum.weighted_accumulate_tiling(
                 ids.shape[0], ids.shape[1], g.shape[1]),
             "ms": cuda_ms(lambda: segment_accum.weighted_accumulate_cuda(
-                ids, w, g, n_rows), 5, torch)})
-        got = segment_accum.weighted_accumulate_cuda(ids, w, g, n_rows)
-        ref = segment_accum.weighted_accumulate_plain(ids, w, g, n_rows)
-        ref64 = segment_accum.weighted_accumulate_plain(
-            ids, w, g, n_rows, dtype=torch.float64)
-        mag = segment_accum.weighted_accumulate_plain(ids, w.abs(), g.abs(),
-                                                      n_rows)
-        # how much of the bound the kernel uses against the true sum; how
-        # much the plain version uses (its own f32 rounding, reported, not
-        # checked); and how far a second run of the plain version (f32
-        # atomics) lands from the first
-        ref2 = segment_accum.weighted_accumulate_plain(ids, w, g, n_rows)
-        torch.cuda.synchronize()
-        fin, bnd = torch.isfinite(ref64), (1e-5 * mag).clamp(min=1e-30)
-        wa_by_call[-1]["bound_use"] = float(((got - ref64).abs()
-                                             / bnd)[fin].max())
-        wa_by_call[-1]["plain_use"] = float(((ref - ref64).abs()
-                                             / bnd)[fin].max())
-        wa_by_call[-1]["plain_spread"] = float(((ref2 - ref).abs()
-                                                / bnd)[fin].max())
-        e = note_err("weighted_accumulate", got, ref)
-        for same in (torch.isnan, torch.isposinf, torch.isneginf):
-            check(torch.equal(same(got), same(ref64)),
-                  f"weighted_accumulate call {i}: {same.__name__} entries "
-                  f"differ from the f64 reference")
-        excess = float(((got - ref64).abs() - 1e-5 * mag)[fin].max())
-        check(excess <= 1e-30, f"weighted_accumulate call {i}: |cuda - "
-              f"ref64| exceeds 1e-5 * plain(|w|, |g|) by {excess} (max abs "
-              f"err vs plain {e}; {wa_by_call[-1]})")
-        cases.append({"kernel": "weighted_accumulate", "call": i,
-                      "n": ids.shape[0], "k": ids.shape[1], "c": g.shape[1],
-                      "n_rows": n_rows, "max_abs_err": e,
-                      "within_bound": True})
+                ids, w, g, n_rows), 5, torch),
+            **{k: held[k] for k in ("bound_use", "plain_use",
+                                    "plain_spread")}})
     ids, w, g, n_rows = max(wa_calls, key=lambda a: a[0].shape[0] * a[2].shape[1])
     n, k = ids.shape
     c = g.shape[1]
@@ -1224,7 +1615,8 @@ def main():
     rec_frame.calls.clear()
     rec_train.calls.clear()
     rec_cluster.clear()
-    phase("kernels", t0, cases=cases)
+    # printed after the lifecycle phase, whose kernel calls join its cases
+    kernels_s = time.perf_counter() - t0
 
     # ---- a 2-step training_loop: stats.jsonl and a checkpoint -------------
     t0 = time.perf_counter()
@@ -1242,6 +1634,7 @@ def main():
             lines = [json.loads(x) for x in f]
         ckpt = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
         ckpt_mb = os.path.getsize(ckpt) / 2 ** 20 if ckpt else 0.0
+        grid_png = os.path.exists(os.path.join(run_dir, "fakes000002.png"))
     loss_steps = [x["step"] for x in lines if "Loss/loss" in x]
     check(loop_state.step == 2, f"training_loop ran {loop_state.step} steps")
     check(loss_steps == [1, 2], f"stats.jsonl loss lines at steps {loss_steps}")
@@ -1249,11 +1642,28 @@ def main():
               for x in lines if "Loss/loss" in x), "training_loop metrics")
     check(ckpt is not None and ckpt.endswith("snapshot-000002.pt"),
           f"training_loop checkpoint {ckpt}")
-    check(all(loop_launches[k] == 2 * v for k, v in TRAIN_LAUNCHES.items()),
+    # two steps and the snapshot's sample grid (one frame, EMA weights)
+    check(all(loop_launches[k] == 2 * v + FRAME_LAUNCHES[k]
+              for k, v in TRAIN_LAUNCHES.items()),
           f"training_loop launches {loop_launches}")
+    check(grid_png, "training_loop wrote no sample grid")
     phase("train_loop", t0, steps=loop_state.step, launches=loop_launches,
           stats_lines=len(lines), checkpoint_mb=round(ckpt_mb, 1))
     del loop_state
+    torch.cuda.empty_cache()
+
+    # ---- lifecycle: train -> snapshot -> the eval CLI on the snapshot ------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as life_dir:
+        life, life_cases, life_errs = lifecycle(torch, np, dev, smpl_d,
+                                                life_dir, shims)
+    for row in rows:
+        row["launches_per_eval_render"] = life["launches_per_render"][row["name"]]
+        if row["name"] in life_errs:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     life_errs[row["name"]])
+    phase("lifecycle", t0, **life)
+    phase("kernels", time.perf_counter() - kernels_s, cases=cases + life_cases)
     torch.cuda.empty_cache()
 
     # ---- agreement with the CPU path on a small input --------------------

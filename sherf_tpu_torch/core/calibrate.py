@@ -103,16 +103,24 @@ def calibrate_budgets(batches: Iterable, cfg, margin: float = 1.2,
                       round_to: int = 8192):
     """Returns (RenderConfig with fitted budgets, measured worst dict).
 
+    ``batches`` is iterated twice (the step margin is fitted over every
+    batch before any survivor count is taken): pass a list, or a
+    re-iterable whose every pass yields the same batches, one at a time,
+    so that only one batch need be alive at once.
+
     The fitted budgets — including the fitted ``prune_step_margin`` — hold
     only for frames shaped like the calibration batches; every consumer must
     check the renderer's overflow counters."""
+    if iter(batches) is batches:
+        raise TypeError("calibrate_budgets iterates its batches twice: pass "
+                        "a list or a re-iterable, not an iterator")
     rcfg = cfg.render
-    batches = list(batches)
-    if not batches:
-        raise ValueError("need at least one calibration batch")
     D = rcfg.depth_resolution
     if rcfg.prune_stride > 1 and D >= 24:
-        step_max = max(float(((b.far - b.near) / (D - 1)).max()) for b in batches)
+        step_max = max((float(((b.far - b.near) / (D - 1)).max())
+                        for b in batches), default=None)
+        if step_max is None:
+            raise ValueError("need at least one calibration batch")
         fitted_margin = math.ceil(step_max / 0.005) * 0.005
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
             rcfg, prune_step_margin=fitted_margin))
@@ -125,6 +133,8 @@ def calibrate_budgets(batches: Iterable, cfg, margin: float = 1.2,
         H_W = batch.ray_o.shape[1]
         for k in worst:
             worst[k] = max(worst[k], m[k])
+    if H_W is None:
+        raise ValueError("need at least one calibration batch")
     empty = [k for k in ("rays", "voxel", "exact") if worst[k] == 0]
     if empty:
         raise ValueError(f"calibration found no survivors for {empty}: the "

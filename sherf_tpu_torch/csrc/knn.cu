@@ -34,7 +34,7 @@
 //     per SM at V = 6890), each staging the vertices once into shared
 //     memory as float4 with coalesced loads.
 //   * A block is four groups of four warps.  A group takes a tile of 128
-//     queries from a global atomic counter, so tiles balance across SMs
+//     queries from an atomic counter, so tiles balance across SMs
 //     and the last wave has no tail of idle blocks.  Each warp of the group
 //     scans one quarter of the vertices for all 128 queries: four queries
 //     per lane in registers, so one broadcast LDS.128 of a vertex serves
@@ -62,7 +62,7 @@
 //
 // ray_body_mask's design, on the same lines:
 //   * Persistent blocks of 256 threads (two per SM at V = 6890) take
-//     256-ray tiles from a global atomic counter.  A tile with no active
+//     256-ray tiles from an atomic counter.  A tile with no active
 //     ray is written false by the block that takes it, which stages
 //     nothing for it; a block stages the vertices once, at its first
 //     active tile.
@@ -79,9 +79,9 @@
 // A dist that is NaN never wins (fminf); a ray with no finite dist is
 // false.
 //
-// Both kernels take their tiles from a __device__ counter that the host
-// zeroes before each launch on the caller's stream.  Two calls of one
-// kernel running at once on different streams would race on it.
+// Both kernels take their tiles from a counter in per-call scratch that
+// the caller allocates and the entry point zeroes with one memset on the
+// call's stream, so calls on two streams never share a counter.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,8 +104,6 @@ constexpr unsigned long long kNoKey = 0x7f80000000000000ull;  // (inf, 0)
 
 static_assert(kNnGroupThreads == kNnTile, "one output per group thread");
 
-__device__ unsigned int g_nn1_next_tile;       // the tile counter
-
 // ray_body_mask
 constexpr int kRayTile = 256;                  // = RSEG_P, the Pallas ray tile
 constexpr int kRayQ = kRayTile / 32;           // rays a lane (a warp: a tile)
@@ -113,8 +111,6 @@ constexpr int kRayWarps = 8;                   // each scans 1/8 of V
 constexpr int kRayThreads = 32 * kRayWarps;    // one output per thread
 
 static_assert(kRayThreads == kRayTile, "one output per thread");
-
-__device__ unsigned int g_rbm_next_tile;       // the tile counter
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
@@ -206,7 +202,8 @@ __device__ __forceinline__ void scan_quarter(const float4* sv, int j0, int j1,
 
 __global__ void __launch_bounds__(kNnThreads, 2)
 nn1_kernel(const float* __restrict__ q, int n, const float* __restrict__ v,
-           int nv, float* __restrict__ d2_out, int* __restrict__ idx_out) {
+           int nv, float* __restrict__ d2_out, int* __restrict__ idx_out,
+           unsigned* __restrict__ counter) {
   extern __shared__ float4 sv[];
   __shared__ unsigned long long keys[kNnGroups][kNnTile];
   __shared__ int tile_of[kNnGroups];
@@ -220,7 +217,7 @@ nn1_kernel(const float* __restrict__ q, int n, const float* __restrict__ v,
 
   stage_vertices_coalesced(v, nv, sv);
   keys[group][gt] = kNoKey;
-  if (gt == 0) tile_of[group] = atomicAdd(&g_nn1_next_tile, 1u);
+  if (gt == 0) tile_of[group] = atomicAdd(counter, 1u);
   __syncthreads();
 
   while (true) {
@@ -282,7 +279,7 @@ nn1_kernel(const float* __restrict__ q, int n, const float* __restrict__ v,
       idx_out[i] = static_cast<int>(key & 0xffffffffu);
     }
     keys[group][gt] = kNoKey;
-    if (gt == 0) tile_of[group] = atomicAdd(&g_nn1_next_tile, 1u);
+    if (gt == 0) tile_of[group] = atomicAdd(counter, 1u);
     group_sync(group);
   }
 }
@@ -302,7 +299,8 @@ ray_mask_tiles_kernel(const float* __restrict__ o,
                       const float* __restrict__ dir,
                       const unsigned char* __restrict__ active, int n,
                       const float* __restrict__ v, int nv, float thr,
-                      unsigned char* __restrict__ out) {
+                      unsigned char* __restrict__ out,
+                      unsigned* __restrict__ counter) {
   extern __shared__ float4 sv[];
   __shared__ unsigned hits[kRayWarps][kRayQ];
   __shared__ int tile_of;
@@ -313,7 +311,7 @@ ray_mask_tiles_kernel(const float* __restrict__ o,
   bool staged = false;
 
   while (true) {
-    if (threadIdx.x == 0) tile_of = atomicAdd(&g_rbm_next_tile, 1u);
+    if (threadIdx.x == 0) tile_of = atomicAdd(counter, 1u);
     __syncthreads();
     const int tile = tile_of;
     if (tile >= ntiles) break;                    // the whole block leaves
@@ -402,14 +400,6 @@ constexpr int kNnStaticSmem =
 constexpr int kRayStaticSmem =
     (kRayWarps * kRayQ + 1) * static_cast<int>(sizeof(unsigned));
 
-template <typename T>
-cudaError_t zero_symbol(const T& symbol, cudaStream_t st) {
-  void* p = nullptr;
-  const cudaError_t err = cudaGetSymbolAddress(&p, symbol);
-  if (err != cudaSuccess) return err;
-  return cudaMemsetAsync(p, 0, sizeof(T), st);
-}
-
 }  // namespace
 
 extern "C" {
@@ -429,8 +419,9 @@ int sherf_knn_max_vertices() {
 // the cooperative scan
 int sherf_nn1_tile() { return kNnTile; }
 
+// counter: one word of per-call scratch on the device, zeroed here
 int sherf_nn1(const float* q, int n, const float* v, int nv, float* d2,
-              int* idx, void* stream) {
+              int* idx, unsigned* counter, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = smem_bytes(nv);
   cudaError_t err = cudaFuncSetAttribute(
@@ -441,15 +432,16 @@ int sherf_nn1(const float* q, int n, const float* v, int nv, float* d2,
   err = persistent_blocks(nn1_kernel, kNnThreads, smem,
                           (tiles + kNnGroups - 1) / kNnGroups, &blocks);
   if (err != cudaSuccess) return err;
-  err = zero_symbol(g_nn1_next_tile, st);
+  err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return err;
-  nn1_kernel<<<blocks, kNnThreads, smem, st>>>(q, n, v, nv, d2, idx);
+  nn1_kernel<<<blocks, kNnThreads, smem, st>>>(q, n, v, nv, d2, idx, counter);
   return cudaGetLastError();
 }
 
 int sherf_ray_body_mask(const float* o, const float* d,
                         const unsigned char* active, int n, const float* v,
-                        int nv, float thr, unsigned char* out, void* stream) {
+                        int nv, float thr, unsigned char* out,
+                        unsigned* counter, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = smem_bytes(nv);
   cudaError_t err = cudaFuncSetAttribute(
@@ -460,10 +452,10 @@ int sherf_ray_body_mask(const float* o, const float* d,
   err = persistent_blocks(ray_mask_tiles_kernel, kRayThreads, smem,
                           (n + kRayTile - 1) / kRayTile, &blocks);
   if (err != cudaSuccess) return err;
-  err = zero_symbol(g_rbm_next_tile, st);
+  err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return err;
   ray_mask_tiles_kernel<<<blocks, kRayThreads, smem, st>>>(
-      o, d, active, n, v, nv, thr, out);
+      o, d, active, n, v, nv, thr, out, counter);
   return cudaGetLastError();
 }
 

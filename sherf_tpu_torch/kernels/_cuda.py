@@ -49,8 +49,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "sherf_nn1": (_I, [_P, _I, _P, _I, _P, _P, _P]),
-    "sherf_ray_body_mask": (_I, [_P, _P, _P, _I, _P, _I, ctypes.c_float, _P, _P]),
+    "sherf_nn1": (_I, [_P, _I, _P, _I, _P, _P, _P, _P]),
+    "sherf_ray_body_mask": (_I, [_P, _P, _P, _I, _P, _I, ctypes.c_float, _P, _P,
+                                  _P]),
     "sherf_ray_body_mask_attrs": (_I, [_P]),
     "sherf_compact_mask": (_I, [_P, _I, _I, _P, _P, _P, _P]),
     "sherf_compact_tile": (_I, []),

@@ -87,9 +87,12 @@ def nn_1_cuda(q_c: torch.Tensor, v_c: torch.Tensor):
     d2 = torch.empty((n,), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
+        # the tile counter: per-call scratch that the entry point zeroes
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
         _cuda.check(lib.sherf_nn1(q_c.data_ptr(), n, v_c.data_ptr(), nv,
                                   d2.data_ptr(), idx.data_ptr(),
-                                  _cuda.stream_of(q_c)), "nn_1")
+                                  counter.data_ptr(), _cuda.stream_of(q_c)),
+                    "nn_1")
         _cuda.LAUNCHES["nn_1"] += 1
     return d2, idx
 
@@ -201,10 +204,11 @@ def ray_body_mask_cuda(o_c, d, v_c, threshold_sq: float, active=None):
         act_ptr = active.data_ptr()
     out = torch.empty((n,), dtype=torch.bool, device=dev)
     if n:
+        counter = torch.empty((1,), dtype=torch.int32, device=dev)
         _cuda.check(lib.sherf_ray_body_mask(
             o_c.data_ptr(), d.data_ptr(), act_ptr, n, v_c.data_ptr(), nv,
-            float(threshold_sq), out.data_ptr(), _cuda.stream_of(o_c)),
-            "ray_body_mask")
+            float(threshold_sq), out.data_ptr(), counter.data_ptr(),
+            _cuda.stream_of(o_c)), "ray_body_mask")
         _cuda.LAUNCHES["ray_body_mask"] += 1
     return out
 

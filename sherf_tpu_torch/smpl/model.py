@@ -1,12 +1,16 @@
 """SMPL model constants (torch counterpart of ``sherf_tpu/smpl/model.py``).
 
-``synthetic_smpl`` builds the arrays in numpy with exactly the JAX package's
-random draws, so the same seed gives the same model in both packages.
+``load_smpl`` reads the standard SMPL pickle; ``synthetic_smpl`` builds the
+arrays in numpy with exactly the JAX package's random draws, so the same
+seed gives the same model in both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
+import threading
+
 import numpy as np
 import torch
 
@@ -39,6 +43,18 @@ class SMPLModel:
                      for f in dataclasses.fields(self)
                      if isinstance(getattr(self, f.name), torch.Tensor)})
 
+    def host(self) -> "SMPLModel":
+        """This model on the CPU, for the host data pipeline: the model
+        itself when it is there, else a copy made once and kept on this
+        object (so it lives and dies with it: no cache keyed by ``id``)."""
+        if self.v_template.device.type == "cpu":
+            return self
+        with _HOST_COPY_LOCK:
+            copy = self.__dict__.get("_host_copy")
+            if copy is None:
+                copy = self.__dict__["_host_copy"] = self.to("cpu")
+        return copy
+
     @staticmethod
     def from_arrays(v_template, shapedirs, posedirs, J_regressor, weights,
                     faces) -> "SMPLModel":
@@ -48,6 +64,38 @@ class SMPLModel:
             posedirs=f32(posedirs), J_regressor=f32(J_regressor),
             weights=f32(weights),
             faces=torch.from_numpy(np.asarray(faces).astype(np.int64)))
+
+
+_HOST_COPY_LOCK = threading.Lock()
+
+
+def _dense(x) -> np.ndarray:
+    if hasattr(x, "todense"):
+        x = x.todense()
+    elif hasattr(x, "toarray"):
+        x = x.toarray()
+    return np.asarray(x)
+
+
+def load_smpl(path: str, device="cuda") -> SMPLModel:
+    """Load a SMPL .pkl (chumpy-free fields only, latin1 encoded; scipy
+    sparse fields are densified) onto ``device``.  The pickle must come
+    from a trusted source: unpickling runs code."""
+    with open(path, "rb") as f:
+        raw = pickle.load(f, encoding="latin1")
+    kintree = np.asarray(_dense(raw["kintree_table"])).astype(np.int64)
+    # kintree_table[1] holds the joint ids; remap the parents through it
+    # (reference smpl_numpy.py:34-35)
+    id_to_col = {int(kintree[1, i]): i for i in range(kintree.shape[1])}
+    parents = np.zeros(N_JOINTS, dtype=np.int32)
+    for i in range(1, kintree.shape[1]):
+        parents[i] = id_to_col[int(kintree[0, i])]
+    model = SMPLModel.from_arrays(
+        _dense(raw["v_template"]), _dense(raw["shapedirs"])[..., :N_SHAPES],
+        _dense(raw["posedirs"]), _dense(raw["J_regressor"]),
+        _dense(raw["weights"]), _dense(raw["f"]))
+    return dataclasses.replace(model, parents=tuple(int(p) for p in parents)
+                               ).to(device)
 
 
 def synthetic_smpl(seed: int = 0, n_verts: int = N_VERTS,

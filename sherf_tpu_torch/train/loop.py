@@ -1,33 +1,70 @@
 """Training orchestration (torch counterpart of ``sherf_tpu/train/loop.py``).
 
-Same order as the JAX loop: calibrate the budgets when asked, build the
-model and the train state, run the steps, accumulate metrics on the device
-and flush their means every report interval, snapshot.  Batches come from
-the caller's ``batch_source``; the dataset loaders are not ported yet.
-Unlike the JAX loop, the metrics of a final partial report interval are
-flushed before the last snapshot, so no step's metrics are lost.
+Same order as the JAX loop: build the dataset pipeline (or take the
+caller's ``batch_source``), size the canonical volume over every served
+subject, calibrate the budgets when asked, build the model and the train
+state, run the steps, accumulate metrics on the device and flush their
+means every report interval, snapshot with a sample grid rendered by the
+EMA weights.  Unlike the JAX loop, the metrics of a final partial report
+interval are flushed before the last snapshot, so no step's metrics are
+lost.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
+import traceback
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from sherf_tpu_torch.core.calibrate import calibrate_budgets
+from sherf_tpu_torch.core.calibrate import (calibrate_budgets,
+                                            calibrate_sparse_caps)
 from sherf_tpu_torch.core.config import DataConfig, ModelConfig, TrainConfig
+from sherf_tpu_torch.data import DATASETS, collate
+from sherf_tpu_torch.data.base import host_smpl_verts
+from sherf_tpu_torch.data.sampler import InfiniteSampler, PrefetchLoader
+from sherf_tpu_torch.eval.png import write_png
+from sherf_tpu_torch.eval.test_loop import to8b
 from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
 from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
-from sherf_tpu_torch.smpl.lbs import big_pose_params, smpl_forward
+from sherf_tpu_torch.smpl.lbs import big_pose_params
 from sherf_tpu_torch.smpl.model import SMPLModel
 from sherf_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from sherf_tpu_torch.train.stats import StatsCollector
 from sherf_tpu_torch.train.step import make_train_step
-from sherf_tpu_torch.train.train_state import create_train_state
+from sherf_tpu_torch.train.train_state import TrainState, create_train_state
+
+
+def build_dataset(dcfg: DataConfig, smpl: SMPLModel):
+    if dcfg.name == "synthetic":
+        return DATASETS["synthetic"](smpl, H=dcfg.resolution, W=dcfg.resolution,
+                                     poses_num=dcfg.poses_num)
+    return DATASETS[dcfg.name](
+        dcfg.data_root, smpl, split=dcfg.split,
+        multi_person=dcfg.multi_person, num_instance=dcfg.num_instance,
+        poses_start=dcfg.poses_start, poses_interval=dcfg.poses_interval,
+        poses_num=dcfg.poses_num, image_scaling=dcfg.image_scaling,
+        white_back=dcfg.white_back, sample_obs_view=dcfg.sample_obs_view,
+        fix_obs_view=dcfg.fix_obs_view)
+
+
+@torch.no_grad()
+def _save_sample_grid(state: TrainState, smpl, batch, path: str):
+    """Per-snapshot sample render (reference save_image_grid,
+    training_loop.py:104,563-579): a [pred | gt | obs] row per batch item,
+    rendered with the EMA weights."""
+    out, _ = torch.func.functional_call(state.model, state.ema, (batch, smpl),
+                                        strict=False)
+    pred = out["image_raw"].float().cpu().numpy() / 2.0 + 0.5
+    rows = [np.concatenate([p, g, o], axis=1) for p, g, o in
+            zip(pred, batch.img.cpu().numpy(), batch.obs_img.cpu().numpy())]
+    write_png(path, to8b(np.concatenate(rows, axis=0)))
 
 
 def training_loop(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
@@ -35,36 +72,60 @@ def training_loop(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
                   calibrate: Optional[float] = None, device="cuda"):
     """Train for ``tcfg.total_kimg`` thousand images; returns the state.
 
-    batch_source: () -> SHERFBatch on ``device`` (required).
+    batch_source: optional () -> SHERFBatch on ``device``; without it the
+    batches come from ``build_dataset(dcfg, smpl)`` through a
+    ``PrefetchLoader`` over an ``InfiniteSampler`` seeded by ``tcfg.seed``.
     calibrate: optional margin; when set, the static prune budgets are
     fitted to the survivor counts of 12 batches before the model is built.
     The model's weights are drawn from ``torch.Generator().manual_seed(
     tcfg.seed)``; ``tcfg.resume`` restores a checkpoint over them."""
-    if batch_source is None:
-        raise NotImplementedError(
-            "training_loop needs a batch_source: the dataset loaders are not "
-            "ported yet (ROADMAP A6)")
     run_dir = tcfg.outdir
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "training_options.json"), "w") as f:
         json.dump({"model": cfg.to_json(), "train": str(tcfg),
                    "data": str(dcfg)}, f, indent=2)
 
-    # the canonical volume covers the default-shape body in its big pose
-    bp = big_pose_params()
-    sdev = smpl.v_template.device
-    with torch.no_grad():
-        t_verts = smpl_forward(smpl, torch.from_numpy(bp["poses"]).to(sdev),
-                               torch.from_numpy(bp["shapes"]).to(sdev))[0]
-    _, out_sh = prepare_voxel_volume(t_verts.cpu().numpy(),
-                                     voxel_size=cfg.voxel_size)
+    if batch_source is not None:
+        return _train(cfg, tcfg, smpl, batch_source, [], calibrate, device)
+    dataset = build_dataset(dcfg, smpl)
+    loader = PrefetchLoader(dataset, tcfg.batch_size,
+                            functools.partial(collate, device=device),
+                            InfiniteSampler(len(dataset), seed=tcfg.seed),
+                            num_workers=dcfg.num_workers)
+    try:
+        bodies = (list(dataset.subject_bodies())
+                  if hasattr(dataset, "subject_bodies") else [])
+        return _train(cfg, tcfg, smpl, lambda: next(loader), bodies,
+                      calibrate, device)
+    finally:
+        loader.close()
 
-    example = batch_source()
+
+def _train(cfg, tcfg, smpl, batch_source, subject_bodies, calibrate, device):
+    run_dir = tcfg.outdir
+    # the canonical volume must cover every served subject's canonical
+    # body, not just the default-shape one (a larger subject's sites would
+    # fall off the grid edge)
+    bp = big_pose_params()
+    bodies = [host_smpl_verts(smpl, bp["poses"], bp["shapes"])[0]]
+    bodies += subject_bodies
+    shapes = [prepare_voxel_volume(b, voxel_size=cfg.voxel_size)[1]
+              for b in bodies]
+    out_sh = tuple(int(max(s[k] for s in shapes)) for k in range(3))
+    if cfg.sparse_caps is None and len(bodies) > 1:
+        cfg = dataclasses.replace(cfg, sparse_caps=calibrate_sparse_caps(
+            bodies, cfg.voxel_size))
+
+    example = batch_source()     # as the JAX loop, which inits on it
     if calibrate is not None:
+        # a spread of batches: budgets fitted to one pose or subject
+        # truncate harder draws; the overflow counters stay the guard
         cal = [example] + [batch_source() for _ in range(11)]
         fitted, worst = calibrate_budgets(cal, cfg, margin=calibrate)
         print(f"calibrated budgets (margin {calibrate}): {worst}")
         cfg = dataclasses.replace(cfg, render=fitted)
+        del cal
+    del example
     model = SHERFGenerator(cfg, out_sh=out_sh, device=device)
     random_init_(model, torch.Generator().manual_seed(tcfg.seed))
     state = create_train_state(model, tcfg)
@@ -117,6 +178,12 @@ def training_loop(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
             t_snap = time.time()
             path = save_checkpoint(os.path.join(run_dir, "checkpoints"), state)
             print(f"snapshot -> {path}")
+            try:
+                _save_sample_grid(state, smpl, batch_source(), os.path.join(
+                    run_dir, f"fakes{step + 1:06d}.png"))
+            except Exception:  # noqa: BLE001 — a failed grid must not stop training
+                traceback.print_exc()
+                print("sample-grid render failed")
             stats.report({"snapshot": time.time() - t_snap}, prefix="Timing/")
     if stats.pending:
         stats.flush(state.step)

@@ -901,6 +901,73 @@ def test_ray_body_mask_clustered_kernel_two_streams(dev):
         assert torch.equal(mk, mp)
 
 
+def test_nn_1_kernel_two_streams(dev):
+    """Two calls with different inputs and sizes on two streams, queued
+    without a synchronise: each has its own tile counter."""
+    rng = np.random.RandomState(12)
+    calls = []
+    for n, v in ((262_144, 6890), (70_001, 3001)):
+        verts = _verts(rng, v)
+        q = (verts[rng.randint(0, v, n)]
+             + rng.randn(n, 3).astype(np.float32) * 0.05)
+        q_c, v_c = knn._centre(torch.from_numpy(q).to(dev),
+                               torch.from_numpy(verts).to(dev))
+        calls.append((q_c, v_c, torch.cuda.Stream()))
+    torch.cuda.synchronize()
+    outs = []
+    for q_c, v_c, st in calls:
+        with torch.cuda.stream(st):
+            outs.append(knn.nn_1_cuda(q_c, v_c))
+    torch.cuda.synchronize()
+    for (q_c, v_c, _), (d2k, ik) in zip(calls, outs):
+        d2p, ip = knn.nn_1_plain(q_c, v_c)
+        assert torch.equal(ik, ip) and torch.equal(d2k, d2p)
+
+
+def test_ray_body_mask_kernel_two_streams(dev):
+    """Two calls with different inputs and sizes on two streams, queued
+    without a synchronise: each has its own tile counter."""
+    rng = np.random.RandomState(13)
+    verts = torch.from_numpy(_verts(rng)).to(dev)
+    calls = []
+    for n, origin in ((262_144, "camera"), (70_001, "spread")):
+        o, d = _rays_at(rng, verts.cpu().numpy(), n, origin)
+        o_c, v_c = knn._centre(torch.from_numpy(o).to(dev), verts)
+        act = torch.from_numpy(rng.rand(n) < 0.5).to(dev)
+        calls.append((o_c, torch.from_numpy(d).to(dev), v_c, act,
+                      torch.cuda.Stream()))
+    torch.cuda.synchronize()
+    outs = []
+    for o_c, d_t, v_c, act, st in calls:
+        with torch.cuda.stream(st):
+            outs.append(knn.ray_body_mask_cuda(o_c, d_t, v_c, THR, act))
+    torch.cuda.synchronize()
+    for (o_c, d_t, v_c, act, _), mk in zip(calls, outs):
+        mp = knn.ray_body_mask_plain(o_c, d_t, v_c, THR, act)
+        assert torch.equal(mk, mp)
+        assert 0 < int(mk.sum()) < o_c.shape[0]
+
+
+def test_host_smpl_copy_follows_its_model(dev):
+    """The data pipeline's CPU copy of a card model is made once and kept
+    on that model: models made and dropped in sequence each give their
+    own vertices."""
+    from sherf_tpu_torch.data.base import host_smpl_verts
+    from sherf_tpu_torch.smpl import big_pose_params, smpl_forward
+
+    bp = big_pose_params()
+    for seed in (0, 1, 0):
+        m = synthetic_smpl(seed, device=dev)
+        assert m.host() is m.host() and m.host().v_template.device.type == "cpu"
+        v, _ = host_smpl_verts(m, bp["poses"], bp["shapes"])
+        ref = synthetic_smpl(seed, device="cpu")
+        with torch.no_grad():
+            own = smpl_forward(ref, torch.from_numpy(bp["poses"]),
+                               torch.from_numpy(bp["shapes"]))[0]
+        assert np.array_equal(v, own.numpy())
+        del m
+
+
 def test_ray_body_mask_clustered_attrs(dev):
     attrs = knn_cluster.ray_body_mask_clustered_attrs()
     # one block of 1,024 threads an SM: at most 64 registers a thread

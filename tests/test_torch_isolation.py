@@ -1,6 +1,6 @@
 """``sherf_tpu_torch`` and ``chip_smoke.py`` import nothing of JAX, flax,
-optax, orbax or the JAX package ``sherf_tpu``: the machine with the GPU has
-no JAX."""
+optax, orbax or the JAX package ``sherf_tpu``, nor an imaging package
+(cv2, imageio, PIL): the machine with the GPU has none of them."""
 
 import ast
 import os
@@ -9,7 +9,13 @@ import sys
 import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "sherf_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "sherf_tpu", "cv2",
+          "imageio", "PIL")
+# modules of every sub-package, which the walk below must reach
+EXPECTED = ("sherf_tpu_torch.cli.eval", "sherf_tpu_torch.cli.train",
+            "sherf_tpu_torch.data.sampler", "sherf_tpu_torch.eval.test_loop",
+            "sherf_tpu_torch.eval.png", "sherf_tpu_torch.geometry.cameras",
+            "sherf_tpu_torch.train.loop", "sherf_tpu_torch.kernels.knn")
 
 CHILD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
@@ -32,6 +38,8 @@ CHILD = textwrap.dedent(f"""
     import chip_smoke
     after = {{m for m in sys.modules if banned(m)}}
     assert after == before, sorted(after - before)
+    missing = set({EXPECTED!r}) - set(names)
+    assert not missing, sorted(missing)
     print("imported", len(names))
 """)
 
@@ -41,7 +49,7 @@ def test_import_pulls_in_no_jax():
     p = subprocess.run([sys.executable, "-c", CHILD], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr
-    assert int(p.stdout.split()[-1]) >= 20
+    assert int(p.stdout.split()[-1]) >= 40
 
 
 def _sources():

@@ -25,7 +25,8 @@ same numpy inputs made from a seed and the same weights.
     share a voxel, and f32 rounding puts 2 vertices of the generator scene
     into other voxels and flips the visibility of 1;
   * a 3-step ``training_loop`` through ``batch_source``: stats.jsonl holds
-    the final partial interval, and its checkpoint restores bit-exactly.
+    the final partial interval, and its checkpoint restores bit-exactly
+    (the loop through ``build_dataset`` is in ``tests/test_torch_eval.py``).
 """
 
 import dataclasses
@@ -626,7 +627,9 @@ def test_training_loop_writes_stats_and_restorable_checkpoint(tmp_path):
 
 
 def test_training_loop_needs_a_batch_source(tmp_path):
+    """Without a batch_source the loop builds its dataset; a file-backed
+    loader that is not ported yet raises instead of a stand-in."""
     ts = t_smpl.synthetic_smpl(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="file-backed loaders"):
         t_train.training_loop(ModelConfig(), TrainConfig(outdir=str(tmp_path)),
-                              DataConfig(), ts, device="cpu")
+                              DataConfig(name="thuman"), ts, device="cpu")
