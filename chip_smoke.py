@@ -6,7 +6,7 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels with nvcc and drives four paths of
+It builds the port's CUDA kernels with nvcc and drives five paths of
 ``sherf_tpu_torch`` at the production configuration (512x512 rays x 48
 samples, bf16, calibrated budgets — the configuration of ``bench.py``),
 with random weights drawn from a seeded ``torch.Generator``:
@@ -28,7 +28,22 @@ with random weights drawn from a seeded ``torch.Generator``:
     one item re-rendered outside ``run_eval`` bit-equal to a model restored
     here from the snapshot's EMA, and each training subject and the
     held-out subject100 and subject101 voxelized into the eval grid at its
-    caps against their own grid (sites cut off, overflow).
+    caps against their own grid (sites cut off, overflow);
+  * the file-backed loaders (phase ``loaders``): the committed JPEG
+    fixtures (``tests/fixtures/jpeg``) decoded by the port bit-equal to
+    PIL's stored decodes, each timed; then a HuMMan tree (1920x1080 PNGs,
+    scaled 1/3 to 640x360) and a RenderPeople tree (512x512, every image a
+    copy of the 512x512 JPEG fixture) written from the synthetic_grid
+    rig's bodies and ring cameras, only the frames the runs read; on each,
+    ``sherf_tpu_torch.cli.train.main`` for 3 steps at its defaults (batch
+    4, f32, 48 samples, budgets calibrated at margin 1.5) and
+    ``sherf_tpu_torch.cli.eval.main`` on the snapshot for the held-out
+    subject (the protocol cut to one observation view and two poses),
+    with a random LPIPS state dict through ``SHERF_LPIPS_WEIGHTS``: item
+    build ms split into decode, resize, mask and rays, LPIPS ms in a step
+    and a render, step and render ms, overflow 0, lpips_*.npy written,
+    and the kernel calls of the first step (4 items) and the first render
+    held against their plain versions.
 
 For each path the launch counters are reset just before it and read just
 after, and must be what the path launches (the frame: 2 nn_1, 1
@@ -37,7 +52,9 @@ ray_body_mask_clustered, 3 cluster_prep, 6 compact_mask; shortlist_frame:
 2 nn_1_shortlist, 1 ray_body_mask_clustered, 3 cluster_prep, 6
 compact_mask; the train step, per step: 3 weighted_accumulate, 2 nn_1, 1
 ray_body_mask, 6 compact_mask; each eval render of the lifecycle: the
-frame's).  It checks that each kernel agrees with its plain torch version
+frame's; each loaders train step: the train step's, once an item of its
+batch of 4; each loaders render: the frame's).  It checks that each kernel
+agrees with its plain torch version
 on the inputs the paths gave it (every call of the frames, of the first
 train step, and of the lifecycle's first train step and first eval render:
 indices, masks and compactions equal; squared distances bit-equal; the
@@ -71,7 +88,7 @@ import subprocess
 import sys
 import time
 
-WATCHDOG_S = 600
+WATCHDOG_S = 900
 # device-side names of the port's own CUDA kernels (csrc/*.cu)
 PORT_KERNELS = {"nn_1": ("nn1_kernel",),
                 "ray_body_mask": ("ray_mask_tiles_kernel",),
@@ -460,16 +477,17 @@ def grid_sites(torch, t_verts, shape, caps, voxel_size, dev):
 
 class Timed:
     """Within ``with``: each listed (owner, attribute, key) callable is
-    wrapped to append its wall ms, between CUDA synchronises, to
+    wrapped to append its wall ms, between CUDA synchronises (none with
+    ``sync=False``: for host work in the loader's threads), to
     ``ms[key]``; ``ms`` keeps the calls in order."""
 
-    def __init__(self, torch, targets):
-        self.torch, self.targets = torch, targets
+    def __init__(self, torch, targets, sync=True):
+        self.torch, self.targets, self.sync = torch, targets, sync
         self.ms = {key: [] for _, _, key in targets}
         self._orig = []
 
     def __enter__(self):
-        sync = self.torch.cuda.synchronize
+        sync = self.torch.cuda.synchronize if self.sync else (lambda: None)
         for owner, attr, key in self.targets:
             orig = getattr(owner, attr)
             self._orig.append((owner, attr, orig))
@@ -773,6 +791,417 @@ def lifecycle(torch, np, dev, smpl_d, out_dir, shims):
                          n for n, f in fit.items() if any(f["eval"]["overflow"])),
                      "subjects": fit},
     }, cases, errs
+
+
+# ---- the loaders phase: the file-backed datasets through the CLIs --------
+
+# train steps a tree's train CLI run takes (at the CLI's default batch, 4)
+LOADER_STEPS = 3
+LOADER_BATCH = 4
+# the eval protocols cut to one observation view and two poses a protocol
+# (depth: the shipped protocols render 260 / 375 frames a subject)
+LOADER_PROTOCOLS = {
+    "renderpeople": dict(obs_views=(0,), nv_pose_start=0, np_pose_start=2,
+                         pose_interval=2, pose_num=2),
+    "humman": dict(obs_views=(0,), nv_pose_start=0, np_pose_start=0,
+                   pose_interval=6, pose_num=2)}
+LOADER_SIZES = {"renderpeople": (512, 512), "humman": (1080, 1920)}
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "jpeg")
+
+
+def jpeg_fixtures(np):
+    """Every committed JPEG fixture decoded by the port, held bit-equal to
+    PIL's stored decode (a PNG, or the SHA-256 of the 1024x1024 one's
+    bytes); the decode ms of each (median of 3)."""
+    import glob
+    import hashlib
+    from sherf_tpu_torch.data.base import read_image
+    out = {}
+    names = sorted(glob.glob(os.path.join(FIXTURE_DIR, "*.jpg")))
+    check(len(names) == 6, f"JPEG fixtures {names}")
+    for path in names:
+        ms = []
+        for _ in range(3):
+            ts = time.perf_counter()
+            got = read_image(path)
+            ms.append((time.perf_counter() - ts) * 1e3)
+        stem = path[:-4]
+        if os.path.exists(stem + ".decoded.png"):
+            ok = np.array_equal(got, read_image(stem + ".decoded.png"))
+        else:
+            with open(stem + ".decoded.sha256") as f:
+                ok = hashlib.sha256(got.tobytes()).hexdigest() == f.read().strip()
+        check(ok, f"{path}: the port's decode is not PIL's")
+        out[os.path.basename(path)] = {"shape": list(got.shape),
+                                       "decode_ms": statistics.median(ms),
+                                       "bit_equal": True}
+    return out
+
+
+def _frames_read(n_subjects, poses_num, interval, views, obs_view, batches):
+    """(subject, pose file index, view) of every item the first
+    ``batches`` batches of the training sampler read, with each item's
+    observation view."""
+    import itertools
+    from sherf_tpu_torch.data.sampler import InfiniteSampler
+    per = poses_num * views
+    out = set()
+    for k in itertools.islice(iter(InfiniteSampler(n_subjects * per, seed=0)),
+                              LOADER_BATCH * batches):
+        inst, pose = k // per, (k % per) // views * interval
+        out.update({(inst, pose, k % views), (inst, pose, obs_view)})
+    return out
+
+
+def write_tree(np, name, root, smpl_cpu, train_cfg):
+    """A RenderPeople- or HuMMan-layout tree under ``root``: training
+    subjects 0 and 1 and held-out subject 2, bodies, poses and ring
+    cameras of the synthetic_grid rig (``SyntheticHumanDataset``).  Only
+    the frames the runs read are written: the training sampler's first
+    batches (calibration, steps, the sample grid and the loader's
+    read-ahead) and, for subject 2, every view of the protocol's poses.
+    HuMMan: 1920x1080 PNGs of the splatted body; RenderPeople: 512x512, the
+    masks drawn from the body but every image a copy of the committed
+    512x512 JPEG fixture (the card has no JPEG encoder).  Returns the
+    counts written."""
+    import json as _json
+    from sherf_tpu_torch.data.base import host_smpl_verts
+    from sherf_tpu_torch.data.synthetic import (SyntheticDataset,
+                                                SyntheticHumanDataset,
+                                                _splat_image,
+                                                fixed_ring_camera)
+    from sherf_tpu_torch.data.sampler import PREFETCH
+    from sherf_tpu_torch.eval.png import write_png
+
+    H, W = LOADER_SIZES[name]
+    rp = name == "renderpeople"
+    views = 36 if rp else 10
+    rig = SyntheticHumanDataset("subject0", smpl_cpu, resolution=64)
+    proto = LOADER_PROTOCOLS[name]
+    batches = 12 + LOADER_STEPS + 1 + PREFETCH + 2
+    frames = _frames_read(2, train_cfg["poses_num"],
+                          train_cfg["poses_interval"], views, 0, batches)
+    eval_poses = sorted({proto[k] + i * proto["pose_interval"]
+                         for k in ("nv_pose_start", "np_pose_start")
+                         for i in range(proto["pose_num"])}
+                        | {proto["np_pose_start"]})
+    frames |= {(2, p, v) for p in eval_poses for v in range(views)}
+    with open(os.path.join(FIXTURE_DIR, "person_512_420.jpg"), "rb") as f:
+        jpeg = f.read()
+    n_pose_files = max(p for _, p, _ in frames) + 1
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "human_list.txt"), "w") as f:
+        f.write("".join(f"subject_{i}\n" for i in range(3)))
+    cams = {}
+    for v in range(views):
+        K, R, T = fixed_ring_camera(H, W, v, views)
+        cams[(f"camera{v:04d}" if rp else f"kinect_color_{v:03d}")] = {
+            "K": K.tolist(), "R": R.tolist(), "T": T.reshape(3).tolist()}
+    bodies = {}
+    for sid in range(3):
+        sub = os.path.join(root, f"subject_{sid}")
+        os.makedirs(sub, exist_ok=True)
+        with open(os.path.join(sub, "cameras.json"), "w") as f:
+            _json.dump(cams, f)
+        shape, phase = SyntheticDataset.subject_identity(sid)
+        poses, transl = [], []
+        for p in range(n_pose_files):
+            pose, _, th = rig._pose_params(sid, p)
+            poses.append(pose)
+            transl.append(th)
+            bodies[(sid, p)] = (pose, shape, th, phase)
+        if rp:
+            os.makedirs(os.path.join(sub, "outputs_re_fitting"), exist_ok=True)
+            np.savez(os.path.join(sub, "outputs_re_fitting",
+                                  "refit_smpl_2nd.npz"), smpl=dict(
+                betas=shape, global_orient=np.stack(poses)[:, :3],
+                body_pose=np.stack(poses)[:, 3:], transl=np.stack(transl)))
+        else:
+            os.makedirs(os.path.join(sub, "smpl_params"), exist_ok=True)
+            for p in range(n_pose_files):
+                np.savez(os.path.join(sub, "smpl_params", f"{p:06d}.npz"),
+                         betas=shape[None], body_pose=poses[p][None, 3:],
+                         global_orient=poses[p][None, :3],
+                         transl=transl[p][None])
+    posed = {}
+    for sid, p, v in sorted(frames):
+        pose, shape, th, phase = bodies[(sid, p)]
+        if (sid, p) not in posed:
+            posed[(sid, p)] = host_smpl_verts(smpl_cpu, pose, shape)[0] + th
+        verts = posed[(sid, p)]
+        K, R, T = fixed_ring_camera(H, W, v, views)
+        img = _splat_image(H, W, K, R, T, verts, np.random.RandomState(0),
+                           phase=phase)
+        # the mask: each splatted vertex grown to a 9x9 square
+        pix = (verts @ R.T + T[:, 0]) @ K.T
+        xy = (pix[:, :2] / np.maximum(pix[:, 2:], 1e-5)).astype(np.int64)
+        off = np.stack(np.meshgrid(np.arange(-4, 5), np.arange(-4, 5)),
+                       -1).reshape(-1, 2)
+        xy = (xy[:, None] + off[None]).reshape(-1, 2)
+        xy = xy[(xy[:, 0] >= 0) & (xy[:, 0] < W) & (xy[:, 1] >= 0)
+                & (xy[:, 1] < H)]
+        mask = np.zeros((H, W, 3), np.uint8)
+        mask[xy[:, 1], xy[:, 0]] = 255
+        sub = os.path.join(root, f"subject_{sid}")
+        if rp:
+            img_path = os.path.join(sub, "img", f"camera{v:04d}", f"{p:04d}.jpg")
+            msk_path = os.path.join(sub, "mask", f"camera{v:04d}",
+                                    f"{p:04d}.png")
+        else:
+            img_path = os.path.join(sub, "kinect_color", f"kinect_{v:03d}",
+                                    f"{p:06d}.png")
+            msk_path = os.path.join(sub, "kinect_mask", f"kinect_{v:03d}",
+                                    f"{p:06d}.png")
+        os.makedirs(os.path.dirname(img_path), exist_ok=True)
+        os.makedirs(os.path.dirname(msk_path), exist_ok=True)
+        if rp:
+            with open(img_path, "wb") as f:
+                f.write(jpeg)
+        else:
+            write_png(img_path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        write_png(msk_path, mask)
+    return {"subjects": 3, "views": views, "pose_files": n_pose_files,
+            "frames_written": len(frames),
+            "train_frames": sum(1 for s, _, _ in frames if s < 2),
+            "eval_frames": sum(1 for s, _, _ in frames if s == 2),
+            "image": f"{W}x{H}"}
+
+
+def loader_run(torch, np, dev, name, root, out_dir, shims):
+    """The train CLI on ``name``'s tree (training subjects 0 and 1, the
+    CLI's defaults: batch 4, f32, 512 / 640x360 x 48, budgets calibrated
+    at margin 1.5) for LOADER_STEPS steps, then the eval CLI on the
+    snapshot for held-out subject 2 (the protocol of LOADER_PROTOCOLS),
+    with LPIPS in the loss and the metrics.  Each step and render counted
+    and timed; the kernel calls of the first step and the first render
+    held against their plain versions.  Returns (numbers, cases, errs)."""
+    import dataclasses
+    from sherf_tpu_torch.cli import eval as eval_cli
+    from sherf_tpu_torch.cli import train as train_cli
+    from sherf_tpu_torch.data import base as data_base
+    from sherf_tpu_torch.eval import test_loop
+    from sherf_tpu_torch.kernels import _cuda
+    from sherf_tpu_torch.train import loop as train_loop
+    from sherf_tpu_torch.train import lpips as t_lpips
+    from sherf_tpu_torch.train.checkpoint import latest_checkpoint
+
+    run_dir = os.path.join(out_dir, "run")
+    eval_dir = os.path.join(out_dir, "eval")
+    step_ms, step_launches, step_metrics, renders = [], [], [], []
+    rec_train, rec_eval = Recorder(shims), Recorder(shims)
+    rec_train.on = rec_eval.on = False
+    orig = {"make": train_loop.make_train_step, "loop": train_loop.training_loop,
+            "run_eval": test_loop.run_eval,
+            "protocol": dict(eval_cli.EVAL_DEFAULTS),
+            "lpips": t_lpips.LPIPS.forward}
+    lpips_ms = []
+
+    def lpips_timed(self, *args):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = orig["lpips"](self, *args)
+        torch.cuda.synchronize()
+        lpips_ms.append((time.perf_counter() - ts) * 1e3)
+        return out
+
+    def make_counted_step(*args, **kwargs):
+        check(kwargs.get("lpips_fn") is not None,
+              f"{name}: training_loop built no lpips_fn with weights present")
+        step = orig["make"](*args, **kwargs)
+
+        def counted(*sargs):
+            seen = dict(_cuda.LAUNCHES)
+            torch.cuda.synchronize()
+            rec_train.on = not step_ms
+            ts = time.perf_counter()
+            out = step(*sargs)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            rec_train.on = False
+            step_launches.append({k: _cuda.LAUNCHES[k] - seen[k] for k in seen})
+            step_metrics.append({k: float(v) for k, v in out.items()})
+            return out
+        return counted
+
+    def few_steps(cfg, tcfg, *args, **kwargs):
+        tcfg = dataclasses.replace(
+            tcfg, total_kimg=LOADER_STEPS * tcfg.batch_size / 1000,
+            snapshot_ticks=100)
+        return orig["loop"](cfg, tcfg, *args, **kwargs)
+
+    def run_eval_counted(render_fn, *args, **kwargs):
+        def render(batch):
+            before = dict(_cuda.LAUNCHES)
+            rec_eval.on = not renders
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = render_fn(batch)
+            torch.cuda.synchronize()
+            rec_eval.on = False
+            renders.append(({k: _cuda.LAUNCHES[k] - before[k] for k in before},
+                            (time.perf_counter() - ts) * 1e3))
+            return out
+        return orig["run_eval"](render, *args, **kwargs)
+
+    item_timers = Timed(torch, [
+        (eval_cli.DATASETS[name], "__getitem__", "item"),
+        (data_base, "decode_jpeg", "decode_jpeg"),
+        (data_base, "decode_png", "decode_png"),
+        (data_base, "resize_area", "resize"),
+        (data_base, "resize_nearest", "resize"),
+        (data_base, "get_bound_2d_mask", "mask"),
+        (data_base, "get_rays_np", "rays"),
+        (data_base, "near_far_aabb_np", "rays")], sync=False)
+    data = (os.path.join(root, "subject_0"))
+    common = ["--cfg", name, "--data", data, "--calibrate_budgets", "true",
+              "--calibrate_margin", str(LIFE_MARGIN)]
+    t_train = time.perf_counter()
+    train_loop.make_train_step = make_counted_step
+    train_loop.training_loop = few_steps
+    t_lpips.LPIPS.forward = lpips_timed
+    try:
+        with rec_train, item_timers:
+            _cuda.reset_launches()
+            train_cli.main(["--outdir", run_dir, "--num_instance", "2"]
+                           + common)
+            torch.cuda.synchronize()
+            train_launches = dict(_cuda.LAUNCHES)
+    finally:
+        train_loop.make_train_step = orig["make"]
+        train_loop.training_loop = orig["loop"]
+        t_lpips.LPIPS.forward = orig["lpips"]
+    train_s = time.perf_counter() - t_train
+    train_lpips_ms = list(lpips_ms)
+    train_items = {k: list(v) for k, v in item_timers.ms.items()}
+    snap = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+    check(len(step_ms) == LOADER_STEPS and snap is not None,
+          f"{name} training: {len(step_ms)} steps, snapshot {snap}")
+    # the generator runs its kernels once for each item of a batch
+    step_expect = {k: v * LOADER_BATCH for k, v in TRAIN_LAUNCHES.items()}
+    check(all(n == step_expect for n in step_launches),
+          f"{name} train step launches {step_launches}")
+    check(all(m["overflow"] == 0 and np.isfinite(m["loss"]) and m["lpips"] > 0
+              for m in step_metrics), f"{name} train metrics {step_metrics}")
+    torch.cuda.empty_cache()
+
+    # ---- eval: the CLI on the snapshot for held-out subject 2
+    lpips_ms.clear()
+    held = os.path.join(root, "subject_2")
+    t_eval = time.perf_counter()
+    test_loop.run_eval = run_eval_counted
+    eval_cli.EVAL_DEFAULTS[name] = LOADER_PROTOCOLS[name]
+    t_lpips.LPIPS.forward = lpips_timed
+    eval_items = Timed(torch, item_timers.targets, sync=False)
+    try:
+        with rec_eval, eval_items:
+            _cuda.reset_launches()
+            results = eval_cli.main(common[:2] + ["--data", held, "--subjects",
+                                                  held, "--resume", snap,
+                                                  "--outdir", eval_dir]
+                                    + common[4:])
+            torch.cuda.synchronize()
+    finally:
+        test_loop.run_eval = orig["run_eval"]
+        eval_cli.EVAL_DEFAULTS.update(orig["protocol"])
+        t_lpips.LPIPS.forward = orig["lpips"]
+    eval_s = time.perf_counter() - t_eval
+    files = sorted(os.path.relpath(os.path.join(d, f), eval_dir)
+                   for d, _, fs in os.walk(eval_dir) for f in fs)
+    inputs = [f for f in files if f.endswith("_input.png")]
+    check(renders and len(inputs) == len(renders),
+          f"{name} eval: {len(renders)} renders, {len(inputs)} PNG triples")
+    for protocol in ("novel_view", "novel_pose"):
+        for key in ("psnr", "ssim", "lpips"):
+            check(any(os.path.dirname(f) == protocol
+                      and os.path.basename(f).startswith(key + "_")
+                      for f in files), f"{name} eval: no {protocol}/{key}_*.npy")
+            check(np.isfinite(results[protocol][key]),
+                  f"{name} eval: {protocol} {results[protocol]}")
+    check(all(r == FRAME_LAUNCHES for r, _ in renders),
+          f"{name} eval: launches per render {[r for r, _ in renders]}")
+
+    for rec, expect, what in ((rec_train, step_expect, "train step"),
+                              (rec_eval, FRAME_LAUNCHES, "render")):
+        kept = {k: len(v) for k, v in rec.calls.items()}
+        check(kept == {k: expect[k] for k in kept},
+              f"{name}: {kept} kernel calls kept from the first {what}")
+    errs = dict.fromkeys(HELD, 0.0)
+    cases = (held_calls(torch, rec_train.calls, f"loaders_{name}_train", errs)
+             + held_calls(torch, rec_eval.calls, f"loaders_{name}_eval", errs))
+    rec_train.calls.clear()
+    rec_eval.calls.clear()
+    med = lambda xs: statistics.median(xs) if xs else None
+    split = lambda ms: {k: {"median_ms": med(v), "calls": len(v)}
+                        for k, v in ms.items()}
+    return {
+        "train_steps": len(step_ms), "batch": LOADER_BATCH,
+        "train_step_ms": step_ms,
+        "train_seconds": round(train_s, 3), "train_launches": train_launches,
+        "launches_per_step": step_launches[0],
+        "overflow": [m["overflow"] for m in step_metrics],
+        "lpips_loss": [m["lpips"] for m in step_metrics],
+        "lpips_ms_in_step": med(train_lpips_ms),
+        "train_item_build": split(train_items),
+        "eval_seconds": round(eval_s, 3), "renders": len(renders),
+        "launches_per_render": renders[0][0],
+        "render_ms_median": med([ms for _, ms in renders]),
+        "lpips_ms_in_render": med(lpips_ms),
+        "eval_item_build": split(eval_items.ms),
+        "results": results, "files": len(files),
+    }, cases, errs
+
+
+def loaders(torch, np, dev, out_dir, shims):
+    """Phase ``loaders``: the JPEG fixtures, then a HuMMan and a
+    RenderPeople tree each through the train and eval CLIs with a random
+    LPIPS state dict (``SHERF_LPIPS_WEIGHTS``)."""
+    from sherf_tpu_torch.cli.train import DATA_DEFAULTS
+    from sherf_tpu_torch.eval import metrics as t_metrics
+    from sherf_tpu_torch.smpl import synthetic_smpl
+    from sherf_tpu_torch.train import lpips as t_lpips
+
+    out = {"jpeg_fixtures": jpeg_fixtures(np)}
+    g = torch.Generator().manual_seed(11)
+    sd = {}
+    for k, v in t_lpips.LPIPS().state_dict().items():
+        if k.startswith("scaling_layer."):
+            sd[k] = v.clone()
+        elif k.startswith("lins."):
+            sd[k] = torch.rand(v.shape, generator=g) * 0.1
+        elif v.dim() == 4:
+            sd[k] = torch.randn(v.shape, generator=g) * (2.0 / v[0].numel()) ** 0.5
+        else:
+            sd[k] = torch.randn(v.shape, generator=g) * 0.05
+    weights = os.path.join(out_dir, "lpips_vgg.pt")
+    torch.save(sd, weights)
+    before = os.environ.get("SHERF_LPIPS_WEIGHTS")
+    os.environ["SHERF_LPIPS_WEIGHTS"] = weights
+    t_lpips._TRIED, t_lpips._LPIPS_PARAMS = False, None
+    t_metrics._LPIPS.clear()
+    smpl_cpu = synthetic_smpl(0, device="cpu")
+    cases, errs = [], dict.fromkeys(HELD, 0.0)
+    try:
+        for name in ("humman", "renderpeople"):
+            ts = time.perf_counter()
+            root = os.path.join(out_dir, name)
+            tree = write_tree(np, name, root, smpl_cpu, DATA_DEFAULTS[name])
+            tree["write_seconds"] = round(time.perf_counter() - ts, 3)
+            run, c, e = loader_run(torch, np, dev, name, root,
+                                   os.path.join(out_dir, name + "_out"), shims)
+            out[name] = {"tree": tree, **run}
+            cases += c
+            for k in errs:
+                errs[k] = max(errs[k], e[k])
+            torch.cuda.empty_cache()
+    finally:
+        if before is None:
+            os.environ.pop("SHERF_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["SHERF_LPIPS_WEIGHTS"] = before
+        t_lpips._TRIED, t_lpips._LPIPS_PARAMS = False, None
+        t_metrics._LPIPS.clear()
+    return out, cases, errs
 
 
 def main():
@@ -1663,7 +2092,21 @@ def main():
             row["max_abs_err"] = max(row["max_abs_err"],
                                      life_errs[row["name"]])
     phase("lifecycle", t0, **life)
-    phase("kernels", time.perf_counter() - kernels_s, cases=cases + life_cases)
+
+    # ---- loaders: HuMMan and RenderPeople trees through the CLIs ----------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as load_dir:
+        load, load_cases, load_errs = loaders(torch, np, dev, load_dir, shims)
+    for row in rows:
+        row["launches_per_loader_step"] = load["humman"]["launches_per_step"].get(
+            row["name"], 0)
+        row["launches_per_loader_render"] = load["humman"][
+            "launches_per_render"][row["name"]]
+        if row["name"] in load_errs:
+            row["max_abs_err"] = max(row["max_abs_err"], load_errs[row["name"]])
+    phase("loaders", t0, **load)
+    phase("kernels", time.perf_counter() - kernels_s,
+          cases=cases + life_cases + load_cases)
     torch.cuda.empty_cache()
 
     # ---- agreement with the CPU path on a small input --------------------

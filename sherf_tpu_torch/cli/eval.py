@@ -39,19 +39,22 @@ class _Reiterable:
         return self.make_iter()
 
 
-def calibration_sweep(make_dataset, subjects, proto, device):
+def calibration_sweep(make_dataset, subjects, proto, device,
+                      view_stride: int = 2):
     """The budget calibration batches: every pose of the protocol range of
-    each eval subject, across the rendered view grid (budgets fitted to one
-    frame, or to the observation views only, overflowed at eval time).  A
-    re-iterable: each pass builds and collates one batch at a time, so the
-    sweep never holds more than one batch."""
+    each eval subject, at every view the protocols render (every
+    ``view_stride``-th).  Budgets fitted to one frame, or to the
+    observation views only, overflowed at eval time; so did the JAX CLI's
+    sweep of every ``max(2, views // 6)``-th view on a 36-view RenderPeople
+    subject: the fitted step margin bounds only the swept views' sample
+    spacing.  A re-iterable: each pass builds and collates one batch at a
+    time, so the sweep never holds more than one batch."""
     def batches():
         for root in subjects:
             ds = make_dataset(root, proto["np_pose_start"],
                               proto["pose_interval"], proto["pose_num"])
-            vstride = max(2, ds.camera_view_num // 6)
             for pose in range(proto["pose_num"]):
-                for v in range(0, ds.camera_view_num, vstride):
+                for v in range(0, ds.camera_view_num, view_stride):
                     idx = pose * ds.camera_view_num + int(v)
                     if idx < len(ds):
                         yield collate([ds[idx]], device)
@@ -106,7 +109,8 @@ def main(argv=None):
                                white_back=a.white_back, sample_obs_view=False,
                                fix_obs_view=True)
 
-    # a loader that is not ported raises here, before any file is read
+    # a loader whose files are missing raises here, before the checkpoint
+    # is read
     probe = make_dataset(a.data, proto["nv_pose_start"],
                          proto["pose_interval"], 1)
 
@@ -127,8 +131,10 @@ def main(argv=None):
                         for n in EVAL_SUBJECTS[a.cfg]]
 
     cfg = model_config_from_args(a)
+    data_interval = 1 if a.cfg == "humman" else 2
     if a.calibrate_budgets:
-        batches = (calibration_sweep(make_dataset, subjects, proto, device)
+        batches = (calibration_sweep(make_dataset, subjects, proto, device,
+                                     view_stride=data_interval)
                    if subjects else [collate([probe[0]], device)])
         cfg = calibrated_config(cfg, batches, margin=a.calibrate_margin)
     model, _, cfg = build_model(cfg, smpl, device=device)
@@ -155,7 +161,7 @@ def main(argv=None):
         nv_pose_start=proto["nv_pose_start"],
         np_pose_start=proto["np_pose_start"],
         pose_interval=proto["pose_interval"], pose_num=proto["pose_num"],
-        data_interval=1 if a.cfg == "humman" else 2,
+        data_interval=data_interval,
         obs_pose_mode=a.obs_pose_mode, device=device)
     print(results)
     return results

@@ -1,25 +1,33 @@
-"""Host-side dataset machinery (torch counterpart of the parts of
-``sherf_tpu/data/base.py`` that the synthetic rigs use).
+"""Host-side dataset machinery (torch counterpart of
+``sherf_tpu/data/base.py``): the per-item pipeline the four file-backed
+loaders share (read -> resize -> bound mask -> rays -> AABB near/far,
+e.g. reference THuman_dataset.py:104-144) and the collation into a
+:class:`SHERFBatch`.
 
 Items are dicts of numpy arrays built on the host; ``collate`` stacks them
 into a :class:`SHERFBatch` on the caller's device.  The SMPL forward of the
 data pipeline runs on CPU tensors of a CPU copy of the model
 (``SMPLModel.host``), never on the card, so loader threads issue no CUDA
-work.
-
-Not ported yet (they need cv2's resize and ``fillPoly`` semantics, and the
-file-backed loaders that call them): ``get_bound_2d_mask``,
-``sample_rays_for_image`` and ``make_item``.
+work.  Images are decoded and resized by the port's own numpy code
+(``data/jpeg.py``, ``data/png_read.py``, ``data/imgproc.py``): the machines
+the port runs on have no imaging package.  Rays take the numpy path
+(``get_rays_np``, ``near_far_aabb_np``); the JAX package's native host-ops
+library is not ported.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from sherf_tpu_torch.core.types import SHERFBatch, SMPLPose
+from sherf_tpu_torch.data.imgproc import fill_poly, resize_area, resize_nearest
+from sherf_tpu_torch.data.jpeg import decode_jpeg
+from sherf_tpu_torch.data.png_read import decode_png
+from sherf_tpu_torch.geometry.rays import get_rays_np, near_far_aabb_np
 from sherf_tpu_torch.smpl.lbs import big_pose_params, smpl_forward
 from sherf_tpu_torch.smpl.model import SMPLModel
 
@@ -41,6 +49,115 @@ def get_bound_corners(bounds: np.ndarray) -> np.ndarray:
                      [mn[0], mx[1], mn[2]], [mn[0], mx[1], mx[2]],
                      [mx[0], mn[1], mn[2]], [mx[0], mn[1], mx[2]],
                      [mx[0], mx[1], mn[2]], [mx[0], mx[1], mx[2]]])
+
+
+def get_bound_2d_mask(bounds, K, pose, H, W) -> np.ndarray:
+    """Projected-3D-box raster mask (THuman_dataset.py:54-65): the six
+    faces of the box's projection filled as ``cv2.fillPoly`` fills them."""
+    corners = get_bound_corners(bounds)
+    xyz = corners @ pose[:, :3].T + pose[:, 3:].T
+    xy = xyz @ K.T
+    xy = np.round(xy[:, :2] / xy[:, 2:]).astype(int)
+    mask = np.zeros((H, W), dtype=np.uint8)
+    for face in ([0, 1, 3, 2, 0], [4, 5, 7, 6, 4], [0, 1, 5, 4, 0],
+                 [2, 3, 7, 6, 2], [0, 2, 6, 4, 0], [1, 3, 7, 5, 1]):
+        fill_poly(mask, xy[face])
+    return mask
+
+
+def read_image(path: str) -> np.ndarray:
+    """A JPEG or PNG file as ``imageio.v2.imread`` returns it (by its
+    content, not its name)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data, path)
+    return decode_png(data, path)
+
+
+def read_view(img_path: str, msk_path: str, white_back: bool):
+    """A view's RGB in [0, 1] (float32, first three channels) and its mask
+    (float32 0 / 1, first channel), the background set to 0 (1 with
+    ``white_back``), as each JAX loader's ``_load_view`` reads them."""
+    img = np.asarray(read_image(img_path), np.float32)
+    if img.ndim == 3:
+        img = img[..., :3]
+    img = img / 255.0
+    msk = np.asarray(read_image(msk_path))
+    msk = (msk != 0).astype(np.float32)
+    if msk.ndim == 3:
+        msk = msk[..., 0]
+    img = img.copy()
+    img[msk == 0] = 1.0 if white_back else 0.0
+    return img, msk
+
+
+def scale_view(img, msk, K, image_scaling: float):
+    """Resize a view by ``image_scaling`` (area for the image, nearest for
+    the mask, ``int`` sizes) and scale K's first two rows to match."""
+    if image_scaling == 1.0:
+        return img, msk, K
+    H, W = img.shape[:2]
+    H, W = int(H * image_scaling), int(W * image_scaling)
+    img = resize_area(img, (W, H))
+    msk = resize_nearest(msk, (W, H))
+    K = K.copy()
+    K[:2] = K[:2] * image_scaling
+    return img, msk, K
+
+
+def sample_rays_for_image(img, msk, K, R, T, bounds,
+                          white_back: bool = False):
+    """The shared sample_ray_*_batch pipeline on a view that its loader has
+    already scaled.  Returns
+    (img, ray_o, ray_d, near, far, mask_at_box, bkgd_msk)."""
+    H, W = img.shape[:2]
+    pose = np.concatenate([R, T.reshape(3, 1)], axis=1)
+    bound_mask = get_bound_2d_mask(bounds, K, pose, H, W)
+
+    msk = msk * bound_mask
+    img = img.copy()
+    img[bound_mask != 1] = 1.0 if white_back else 0.0
+
+    ray_o, ray_d = get_rays_np(H, W, K, R, T)
+    ray_o = ray_o.reshape(-1, 3).astype(np.float32)
+    ray_d = ray_d.reshape(-1, 3).astype(np.float32)
+    near, far, mask_at_box = near_far_aabb_np(bounds, ray_o, ray_d)
+    return img, ray_o, ray_d, near, far, mask_at_box, msk
+
+
+def make_item(*, img, msk, K, R, T, world_bounds, params, vertices,
+              obs_img, obs_K, obs_R, obs_T, obs_params, obs_vertices,
+              t_params, t_vertices, t_world_bounds,
+              white_back: bool = False) -> Dict:
+    """Assemble one training / eval item (numpy, HWC images)."""
+    img, ray_o, ray_d, near, far, mask_at_box, bkgd = sample_rays_for_image(
+        img, msk, K, R, T, world_bounds, white_back)
+    return dict(
+        img=img.astype(np.float32),
+        ray_o=ray_o, ray_d=ray_d, near=near, far=far,
+        mask_at_box=mask_at_box,
+        bkgd_msk=(bkgd != 0).astype(np.float32).reshape(-1),
+        params=params, vertices=vertices.astype(np.float32),
+        obs_img=obs_img.astype(np.float32),
+        obs_K=obs_K.astype(np.float32), obs_R=obs_R.astype(np.float32),
+        obs_T=obs_T.reshape(3, 1).astype(np.float32),
+        obs_params=obs_params, obs_vertices=obs_vertices.astype(np.float32),
+        t_params=t_params, t_vertices=t_vertices.astype(np.float32),
+        t_world_bounds=t_world_bounds.astype(np.float32),
+    )
+
+
+def subject_roots(data_root: str, multi_person: bool, num_instance: int):
+    """The subject directories a loader serves: with ``multi_person`` the
+    first ``num_instance`` names of ``../human_list.txt``, else
+    ``data_root`` alone."""
+    if not multi_person:
+        return [data_root]
+    humans_root = os.path.dirname(data_root)
+    with open(os.path.join(humans_root, "human_list.txt")) as f:
+        names = [x.strip() for x in f.readlines()[:num_instance]]
+    return [os.path.join(humans_root, n) for n in names]
 
 
 def canonical_bounds(t_vertices: np.ndarray) -> np.ndarray:

@@ -7,10 +7,10 @@ reference test_loop.py:36-84).
     ``cv2.boundingRect`` returns).  The reference passes float images
     without ``data_range``, so legacy skimage assumes the float dtype's
     range of 2.0: ``data_range=2.0`` keeps that quirk for number parity;
-  * LPIPS: None until LPIPS is ported (ROADMAP Queue A), as the JAX
-    package returns without VGG weights.
+  * LPIPS on the same crop, on the caller's device, when VGG weights exist
+    (``train/lpips.py``); None without them, as in the JAX package.
 
-NumPy only (no cv2).
+NumPy (no cv2) and, for LPIPS, torch.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def psnr_np(pred: np.ndarray, gt: np.ndarray, mask: np.ndarray) -> float:
@@ -71,10 +72,33 @@ def bounding_rect(mask: np.ndarray) -> Tuple[int, int, int, int]:
     return x0, y0, int(xs.max()) - x0 + 1, int(ys.max()) - y0 + 1
 
 
+_LPIPS = {}
+
+
+def _lpips_model(device):
+    """The LPIPS module on ``device`` (built once; None without weights)."""
+    key = str(device)
+    if key not in _LPIPS:
+        # imported here: the train package imports this one
+        from sherf_tpu_torch.train.lpips import make_lpips
+        _LPIPS[key] = make_lpips(device)
+    return _LPIPS[key]
+
+
 def crop_metrics(img_pred: np.ndarray, img_gt: np.ndarray,
-                 mask_at_box: np.ndarray) -> Tuple[float, Optional[float]]:
-    """(SSIM, LPIPS or None) on the person crop (test_loop.ssim_metric:67-84)."""
+                 mask_at_box: np.ndarray, device="cuda"
+                 ) -> Tuple[float, Optional[float]]:
+    """(SSIM, LPIPS or None) on the person crop (test_loop.ssim_metric:67-84);
+    LPIPS runs on ``device``."""
     x, y, w, h = bounding_rect(mask_at_box)
     crop_pred = img_pred[y:y + h, x:x + w]
     crop_gt = img_gt[y:y + h, x:x + w]
-    return ssim_np(crop_pred, crop_gt), None
+    s = ssim_np(crop_pred, crop_gt)
+    model = _lpips_model(device)
+    if model is None:
+        return s, None
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].to(
+        device) * 2 - 1
+    with torch.no_grad():
+        lp = float(model(to(crop_pred), to(crop_gt))[0])
+    return s, lp

@@ -8,9 +8,10 @@ Two protocols, both per observation view and per held-out subject:
   * novel pose — the observation image is pinned to the np_pose_start pose;
     all other poses / views are rendered (animation from one image).
 
-Metrics: PSNR over mask_at_box pixels; SSIM on the person crop (LPIPS once
-it is ported).  Writes pred / gt / input PNGs and the reference's
-psnr_ / ssim_*.npy aggregates, with the JAX package's names and layout:
+Metrics: PSNR over mask_at_box pixels; SSIM and, when VGG weights exist,
+LPIPS on the person crop.  Writes pred / gt / input PNGs and the
+reference's psnr_ / ssim_ / lpips_*.npy aggregates, with the JAX
+package's names and layout:
 ``{protocol}/obs_view_{v}/{human}/frameNNNN_viewNNNN{,_gt,_input}.png``.
 
 Novel-pose observation indexing: the reference sets ``obs_pose_index =
@@ -57,7 +58,7 @@ def _eval_one(render_fn, item, savedir: str, tag: str, device):
     # the metric crop works on mask-zeroed images (test_loop.ssim_metric)
     pm = pred * mask[..., None]
     gm = gt * mask[..., None]
-    ssim, lpips = crop_metrics(pm, gm, mask)
+    ssim, lpips = crop_metrics(pm, gm, mask, device=device)
     return psnr, ssim, lpips
 
 

@@ -36,6 +36,7 @@ from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
 from sherf_tpu_torch.smpl.lbs import big_pose_params
 from sherf_tpu_torch.smpl.model import SMPLModel
 from sherf_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from sherf_tpu_torch.train.lpips import make_lpips
 from sherf_tpu_torch.train.stats import StatsCollector
 from sherf_tpu_torch.train.step import make_train_step
 from sherf_tpu_torch.train.train_state import TrainState, create_train_state
@@ -133,7 +134,10 @@ def _train(cfg, tcfg, smpl, batch_source, subject_bodies, calibrate, device):
         restore_checkpoint(tcfg.resume, state)
         print(f"resumed from {tcfg.resume} at step {state.step}")
 
-    step_fn = make_train_step(model, smpl, tcfg)
+    # LPIPS joins the loss when weights exist (SHERF_LPIPS_WEIGHTS), as in
+    # the JAX loop; without them its term is 0
+    step_fn = make_train_step(model, smpl, tcfg,
+                              lpips_fn=make_lpips(device))
     stats = StatsCollector(run_dir)
     total_steps = int(tcfg.total_kimg * 1000) // tcfg.batch_size
     report_every = max(tcfg.report_imgs // tcfg.batch_size, 1)

@@ -122,7 +122,9 @@ def test_eval_cli_assembles_what_jax_does(monkeypatch, tmp_path, argv):
 
 
 def test_eval_cli_rejects_a_loader_that_is_not_ported():
-    with pytest.raises(NotImplementedError, match="file-backed loaders"):
+    """Every loader is ported: a file-backed one whose subject directory is
+    missing stops at its first read, before the checkpoint is read."""
+    with pytest.raises(FileNotFoundError, match="/data/thuman/s0"):
         t_eval_cli.main(["--cfg", "thuman", "--data", "/data/thuman/s0",
                          "--resume", "snap", "--device", "cpu"])
 

@@ -1006,3 +1006,69 @@ def test_clustered_wrappers_count_and_reject(dev):
     with pytest.raises(ValueError):        # more clusters than a tile ranks
         knn_cluster.nn_1_shortlist_cuda(q, knn_cluster.make_clusters(
             verts, 64, sorted_mean=False))
+
+
+def test_train_step_with_lpips_on_the_card(dev):
+    """A train step with LPIPS in the loss (a random state dict in the
+    lpips package's layout): finite loss, LPIPS > 0 and equal to the CPU
+    module's on the step's own inputs, every overflow counter 0."""
+    import dataclasses
+
+    from sherf_tpu_torch.core.calibrate import calibrate_budgets
+    from sherf_tpu_torch.core.config import (ModelConfig, RenderConfig,
+                                             TrainConfig)
+    from sherf_tpu_torch.data.synthetic import make_synthetic_batch
+    from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
+    from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+    from sherf_tpu_torch.smpl import big_pose_params, smpl_forward
+    from sherf_tpu_torch.train import create_train_state, make_train_step
+    from sherf_tpu_torch.train.lpips import LPIPS, load_lpips_state_dict
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    sd = {}
+    for k, v in LPIPS().state_dict().items():
+        if k.startswith("scaling_layer."):
+            sd[k] = v.clone()
+        elif k.startswith("lins."):
+            sd[k] = torch.rand(v.shape, generator=g) * 0.1
+        elif v.dim() == 4:                 # He-scaled convolutions
+            sd[k] = torch.randn(v.shape, generator=g) * (2.0 / v[0].numel()
+                                                         ) ** 0.5
+        else:
+            sd[k] = torch.randn(v.shape, generator=g) * 0.05
+    lp_dev = load_lpips_state_dict(LPIPS(), sd).to(dev).eval()
+    lp_cpu = load_lpips_state_dict(LPIPS(), sd).eval()
+
+    smpl = synthetic_smpl(0, device="cpu")
+    bp = big_pose_params()
+    with torch.no_grad():
+        tv = smpl_forward(smpl, torch.from_numpy(bp["poses"]),
+                          torch.from_numpy(bp["shapes"]))[0].numpy()
+    cfg = ModelConfig(backbone_resolution=64, channel_base=1024,
+                      channel_max=32, voxel_size=0.02,
+                      render=RenderConfig(depth_resolution=8))
+    _, out_sh = prepare_voxel_volume(tv, voxel_size=cfg.voxel_size)
+    batch = make_synthetic_batch(smpl, batch_size=1, H=32, W=32, seed=0,
+                                 device=dev)
+    fitted, _ = calibrate_budgets([batch], cfg, margin=1.3)
+    cfg = dataclasses.replace(cfg, render=fitted)
+    model = SHERFGenerator(cfg, out_sh=out_sh, device=dev)
+    random_init_(model, torch.Generator().manual_seed(0))
+    state = create_train_state(model, TrainConfig(batch_size=1))
+    seen = []
+
+    def lpips_fn(a, b):
+        seen.append((a.detach().cpu(), b.detach().cpu()))
+        return lp_dev(a, b)
+
+    step = make_train_step(model, smpl.to(dev), TrainConfig(batch_size=1),
+                           lpips_fn=lpips_fn)
+    m = step(state, batch, torch.Generator(device=dev).manual_seed(0))
+    assert int(m["overflow"]) == 0
+    assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"]))
+    assert float(m["lpips"]) > 0 and len(seen) == 1
+    with torch.no_grad():
+        ref = lp_cpu(*seen[0]).mean()
+    assert float(m["lpips"]) == pytest.approx(float(ref), rel=1e-4)

@@ -315,5 +315,8 @@ def test_host_smpl_verts_follow_their_model():
 
 @pytest.mark.parametrize("name", ["renderpeople", "thuman", "humman", "zju"])
 def test_file_backed_loaders_raise(smpls, name):
-    with pytest.raises(NotImplementedError, match="file-backed loaders"):
+    """The file-backed loaders are ported: without their files they raise
+    at their first read (tests/test_torch_loaders.py drives them on trees
+    that it writes)."""
+    with pytest.raises(FileNotFoundError, match="/nonexistent"):
         t_data.DATASETS[name]("/nonexistent/subject0", smpls[1])

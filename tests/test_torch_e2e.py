@@ -136,3 +136,50 @@ def test_generator_matches_jax(scene, mode, record_property):
     record_property("image_raw_psnr_db", float(psnr))
     assert psnr >= 45.0
     np.testing.assert_allclose(acc, np.asarray(jo["weights_image"]), atol=1e-2)
+
+
+# measured on the scene: 73.05 dB to JAX bf16 against 71.71 dB to JAX f32
+BF16_MARGIN_DB = 1.0
+
+
+def test_bf16_budgeted_generator_matches_jax(scene, record_property):
+    """The production dtype: the generator in bf16 in budgeted mode (the
+    budgets the f32 budgeted test fits), the port against JAX on the same
+    weights.  The gate comes from JAX itself: the port's bf16 image must be
+    no farther from JAX's bf16 image than JAX's bf16 image is from JAX's
+    f32 image, and every overflow counter reads 0.  And the port really
+    ran bf16: its image is closer to JAX's bf16 image than to JAX's f32
+    image, by BF16_MARGIN_DB: a port left in f32 sits ~147 dB from JAX f32
+    and ~71.1 dB (PSNR(JAX bf16, JAX f32)) from JAX bf16, and fails it."""
+    js, ts, v = scene["js"], scene["ts"], scene["v"]
+    fitted, _ = j_calibrate([scene["jb"]], scene["jcfg"], margin=1.15,
+                            round_to=128)
+    outs = {}
+    for dtype in ("float32", "bfloat16"):
+        jcfg = dataclasses.replace(scene["jcfg"], render=fitted,
+                                   compute_dtype=dtype)
+        jm = JGenerator(jcfg, out_sh=scene["out_sh"])
+        jo, mv = jax.jit(lambda v, b: jm.apply(v, b, js, mutable=["diag"]))(
+            v, scene["jb"])
+        assert all(n == 0 for n in overflow_report(
+            jax.device_get(mv["diag"])).values()), dtype
+        outs[dtype] = np.asarray(jax.device_get(jo)["image_raw"], np.float32)
+    tcfg = ModelConfig(**MODEL_KW, compute_dtype="bfloat16",
+                       render=RenderConfig(**dataclasses.asdict(fitted)))
+    tm = SHERFGenerator(tcfg, out_sh=scene["out_sh"], device="cpu")
+    tm.load_state_dict(from_flax(v), strict=True)
+    with torch.no_grad():
+        to, diag = tm.eval()(scene["tb"], ts)
+    assert all(int(n) == 0 for n in diag.values()), diag
+    port = to["image_raw"].float().numpy()
+    assert port.shape == outs["bfloat16"].shape and np.isfinite(port).all()
+    assert float(to["weights_image"].float().max()) > 0.5
+    psnr_port = _psnr(port, outs["bfloat16"])
+    psnr_jax = _psnr(outs["bfloat16"], outs["float32"])
+    psnr_port_f32 = _psnr(port, outs["float32"])
+    record_property("bf16_port_vs_jax_bf16_psnr_db", float(psnr_port))
+    record_property("bf16_jax_bf16_vs_jax_f32_psnr_db", float(psnr_jax))
+    record_property("bf16_port_vs_jax_f32_psnr_db", float(psnr_port_f32))
+    assert psnr_port >= psnr_jax, (psnr_port, psnr_jax)
+    assert psnr_port >= psnr_port_f32 + BF16_MARGIN_DB, (psnr_port,
+                                                         psnr_port_f32)

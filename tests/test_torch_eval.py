@@ -127,7 +127,7 @@ def test_metrics_match_jax(seed):
     assert (t_metrics.ssim_np(pred, gt)
             == pytest.approx(j_metrics.ssim_np(pred, gt), abs=1e-12))
     pm, gm = pred * mask[..., None], gt * mask[..., None]
-    ts, tl = t_metrics.crop_metrics(pm, gm, mask)
+    ts, tl = t_metrics.crop_metrics(pm, gm, mask, device="cpu")
     js, jl = j_metrics.crop_metrics(pm, gm, mask)
     assert tl is None and jl is None
     assert ts == pytest.approx(js, abs=1e-12)

@@ -627,9 +627,9 @@ def test_training_loop_writes_stats_and_restorable_checkpoint(tmp_path):
 
 
 def test_training_loop_needs_a_batch_source(tmp_path):
-    """Without a batch_source the loop builds its dataset; a file-backed
-    loader that is not ported yet raises instead of a stand-in."""
+    """Without a batch_source the loop builds its dataset: a file-backed
+    loader without its files raises instead of a stand-in."""
     ts = t_smpl.synthetic_smpl(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="file-backed loaders"):
+    with pytest.raises(FileNotFoundError):
         t_train.training_loop(ModelConfig(), TrainConfig(outdir=str(tmp_path)),
                               DataConfig(name="thuman"), ts, device="cpu")
