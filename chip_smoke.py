@@ -6,7 +6,7 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels with nvcc and drives five paths of
+It builds the port's CUDA kernels with nvcc and drives six paths of
 ``sherf_tpu_torch`` at the production configuration (512x512 rays x 48
 samples, bf16, calibrated budgets — the configuration of ``bench.py``),
 with random weights drawn from a seeded ``torch.Generator``:
@@ -43,10 +43,24 @@ with random weights drawn from a seeded ``torch.Generator``:
     build ms split into decode, resize, mask and rays, LPIPS ms in a step
     and a render, step and render ms, overflow 0, lpips_*.npy written,
     and the kernel calls of the first step (4 items) and the first render
-    held against their plain versions.
+    held against their plain versions;
+  * the off-default model branches at the frame's configuration (phase
+    ``branches``): the importance frame (48 + 48 samples, budgets
+    calibrated with the pass on), the same with the cluster shortlist on
+    (B6), 3 train steps with it (random u and density noise from the
+    step's generator), the capsule-prune frame (its point budget from its
+    own survivors; >= 45 dB from the default frame), the OSG-decoder frame
+    and the SR frame (8XDC, 512 -> 128 -> 512): frame ms, caps,
+    survivors, overflow 0, the fine pass's nn_1 and compact_mask calls
+    timed, the capsule test and the SR head timed; then the four
+    configurations at 24x24 rays in f32 on the card and on the CPU, each
+    >= 45 dB apart.
 
 For each path the launch counters are reset just before it and read just
-after, and must be what the path launches (the frame: 2 nn_1, 1
+after, and must be what the path launches (the importance frame: 4 nn_1,
+1 ray_body_mask, 9 compact_mask; with the shortlist: 4 nn_1_shortlist, 4
+cluster_prep, 1 ray_body_mask, 9 compact_mask; its train step adds 6
+weighted_accumulate; the capsule, OSG and SR frames: the frame's) (the frame: 2 nn_1, 1
 ray_body_mask, 6 compact_mask; cluster_frame: 2 nn_1_clustered, 1
 ray_body_mask_clustered, 3 cluster_prep, 6 compact_mask; shortlist_frame:
 2 nn_1_shortlist, 1 ray_body_mask_clustered, 3 cluster_prep, 6
@@ -56,7 +70,8 @@ frame's; each loaders train step: the train step's, once an item of its
 batch of 4; each loaders render: the frame's).  It checks that each kernel
 agrees with its plain torch version
 on the inputs the paths gave it (every call of the frames, of the first
-train step, and of the lifecycle's first train step and first eval render:
+train step, of the branches' frames and first importance train step, and
+of the lifecycle's first train step and first eval render:
 indices, masks and compactions equal; squared distances bit-equal; the
 cluster prep's order, rows, centre, centroids and radii bit-equal;
 nn_1_shortlist's tile lists equal; the table gradient within the f32
@@ -1204,6 +1219,348 @@ def loaders(torch, np, dev, out_dir, shims):
     return out, cases, errs
 
 
+# ---- the branches phase: the off-default model branches at full width ----
+
+# EG3D's importance setting: 48 stratified + 48 importance samples
+IMP_DEPTH = 48
+# per importance frame at batch 1: the point and canonical KNNs of each
+# pass; the ray compaction, each pass's point compaction and the 3
+# sparse-conv downsamples of each pass's decode
+IMP_LAUNCHES = {**NONE, "nn_1": 4, "ray_body_mask": 1, "compact_mask": 9}
+# ... with the shortlist on: both passes' KNNs take B6, each with its prep
+IMP_SHORTLIST_LAUNCHES = {**NONE, "nn_1_shortlist": 4, "cluster_prep": 4,
+                          "ray_body_mask": 1, "compact_mask": 9}
+# ... in a train step: each pass's 3-scale readout adds its table gradients
+IMP_TRAIN_LAUNCHES = {**IMP_LAUNCHES, "weighted_accumulate": 6}
+IMP_TRAIN_STEPS = 3
+# the small GPU-vs-CPU renders of the four configurations
+SMALL_HW, SMALL_D, SMALL_DI = 24, 16, 8
+
+
+def held_nn_1_shortlist(torch, what, query, ref, s_cap):
+    """nn_1_shortlist (B6) on one recorded wrapper call against its plain
+    version: the prep bit-equal to the plain prep, the tile lists equal to
+    ``shortlist_tiles``, indices equal, d2 bit-equal."""
+    from sherf_tpu_torch.kernels import knn_cluster as kc
+    ck = kc.make_clusters_cuda(ref, kc.SL_CSIZE, False)
+    cp = kc.make_clusters_plain(ref, kc.SL_CSIZE, False)
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    for f in ("order", "vs", "ctr0", "cent", "rad"):
+        check(torch.equal(bits(getattr(ck, f)), bits(getattr(cp, f))),
+              f"{what}: the prep's {f} differs from the plain prep")
+    q_c = (query - ck.ctr0).contiguous()
+    counts, ids, _, _ = kc.shortlist_tiles(q_c, ck)
+    lists = (torch.empty_like(counts), torch.empty_like(ids))
+    d2k, ik, over = kc.nn_1_shortlist_cuda(query, ck, lists=lists)
+    d2p, ip, visits = kc.nn_1_shortlist_plain(q_c, ck, counts, ids)
+    torch.cuda.synchronize()
+    check(torch.equal(lists[0], counts) and torch.equal(lists[1], ids),
+          f"{what}: the kernel's tile lists differ from shortlist_tiles")
+    check(int(over) == 0, f"{what}: overflow {int(over)}")
+    err = max_abs(d2k, d2p)
+    check(torch.equal(ik, ip), f"{what}: indices differ")
+    check(torch.equal(bits(d2k), bits(d2p)), f"{what}: d2 not bit-equal "
+          f"(max abs err {err})")
+    return ({"n": query.shape[0], "v": ref.shape[0], "equal": True,
+             "prep_equal": True, "lists_equal": True,
+             "pairs_admitted": int(visits.sum())}, err)
+
+
+def psnr_db(np, a, b):
+    """PSNR of two images in (-1, 1), as the tests compute it ("inf" when
+    equal)."""
+    a = (a.double().cpu().numpy() + 1) / 2
+    b = (b.double().cpu().numpy() + 1) / 2
+    mse = float(np.mean((a - b) ** 2))
+    return "inf" if mse == 0 else float(10 * np.log10(1.0 / mse))
+
+
+def branches(torch, np, dev, cfg, out_sh, model, batch, smpl, smpl_d, shims,
+             launches, voxel_survivors):
+    """The four off-default branches at the frame's configuration (512x512
+    x 48, bf16, budgets calibrated at MARGIN, seed 0): the importance frame
+    (48 + 48 samples) and 3 train steps with it, the importance frame with
+    the cluster shortlist on (B6), the capsule-prune frame (point budget
+    from its own survivors, reported beside the default frame's
+    ``voxel_survivors``), the OSG-decoder frame and the SR frame (8XDC,
+    512 -> 128 -> 512); then the same four at a small shape on the card
+    and on the CPU.  Each path's launches are counted
+    into ``launches`` and each of its kernel calls held against the
+    kernel's plain version.  Returns (numbers, cases, errs)."""
+    import dataclasses
+
+    from sherf_tpu_torch.core.calibrate import calibrate_budgets
+    from sherf_tpu_torch.core.config import RenderConfig, TrainConfig
+    from sherf_tpu_torch.core.diag import overflow_report
+    from sherf_tpu_torch.data.synthetic import make_synthetic_batch
+    from sherf_tpu_torch.kernels import _cuda, compaction, knn, knn_cluster
+    from sherf_tpu_torch.kernels import capsules
+    from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+    from sherf_tpu_torch.nerf import renderer as renderer_mod
+    from sherf_tpu_torch.train import create_train_state, make_train_step
+
+    out, cases = {}, []
+    errs = dict.fromkeys(PORT_KERNELS, 0.0)
+    all_shims = shims + [(knn_cluster, "nn_1_shortlist", "nn_1_shortlist")]
+    held = dict(HELD, nn_1_shortlist=held_nn_1_shortlist)
+    base = model.state_dict()
+
+    def build(c, where=dev, strict=True):
+        """The generator for config ``c`` with the frame model's weights (a
+        branch's own modules drawn by random_init_)."""
+        m = SHERFGenerator(c, out_sh=out_sh, device=where)
+        random_init_(m, torch.Generator().manual_seed(0))
+        m.load_state_dict(base, strict=strict)
+        return m
+
+    def hold(path, calls):
+        for key, fn in held.items():
+            for i, args in enumerate(calls.get(key, ())):
+                case, err = fn(torch, f"{key} call {i} ({path})", *args)
+                errs[key] = max(errs[key], err)
+                cases.append({"kernel": key, "path": path, "call": i, **case})
+
+    def frame(path, m, expect):
+        """One counted, recorded frame of ``m``, checked; its median ms."""
+        with Recorder(all_shims) as rec, torch.inference_mode():
+            _cuda.reset_launches()
+            o, diag = m(batch, smpl_d)
+            torch.cuda.synchronize()
+            launches[path] = dict(_cuda.LAUNCHES)
+        ov = overflow_report(diag)
+        check(all(bool(torch.isfinite(v).all()) for v in o.values()),
+              f"{path}: non-finite output")
+        check(tuple(o["image_raw"].shape) == (1, H, W, 3),
+              f"{path}: image_raw {tuple(o['image_raw'].shape)}")
+        check(all(v == 0 for v in ov.values()), f"{path}: overflow {ov}")
+        check(launches[path] == expect,
+              f"{path}: launches {launches[path]}, expected {expect}")
+        ms = []
+        with torch.inference_mode():
+            for _ in range(FRAME_ITERS):
+                ts = time.perf_counter()
+                m(batch, smpl_d)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - ts) * 1e3)
+        hold(path, rec.calls)
+        res = {"launches": launches[path], "overflow": ov,
+               "frame_ms_median": statistics.median(ms), "frame_ms": ms,
+               "acc_max": float(o["weights_image"].max())}
+        return o, res, rec.calls
+
+    def capsule_budget(c, b, s_, where):
+        """``c`` with the capsule prune and its point budget: the capsule
+        test of a first frame (at c's budget) counts its survivors, and the
+        budget is that count at MARGIN.  Returns (config, survivors, the
+        prune_mask calls of that frame)."""
+        c = dataclasses.replace(c, render=dataclasses.replace(
+            c.render, prune_mode="capsule"))
+        seen, orig = [], renderer_mod.prune_mask
+
+        def keep(*args):
+            seen.append(args)
+            return orig(*args)
+        renderer_mod.prune_mask = keep
+        try:
+            with torch.inference_mode():
+                build(c, where)(b, s_)
+        finally:
+            renderer_mod.prune_mask = orig
+        n = b.ray_o.shape[1] * c.render.depth_resolution
+        surv = int(orig(*seen[0]).sum())
+        cap = -(-int(surv * MARGIN) // 128) * 128
+        check(cap < n, f"capsule budget {cap} covers the whole frame ({n})")
+        return (dataclasses.replace(c, render=dataclasses.replace(
+            c.render, point_capacity_frac=cap / n)), surv, seen)
+
+    with torch.inference_mode():
+        ref_img = model(batch, smpl_d)[0]["image_raw"]
+    M = H * W * DEPTH
+
+    # (a) the importance frame, budgets calibrated with the pass on
+    imp_cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, depth_resolution_importance=IMP_DEPTH))
+    fitted, _ = calibrate_budgets([batch], imp_cfg, margin=MARGIN)
+    imp_cfg = dataclasses.replace(imp_cfg, render=fitted)
+    m = build(imp_cfg).eval()
+    o, res, calls = frame("imp_frame", m, IMP_LAUNCHES)
+    check({"imp_coarse_overflow", "imp_fine_overflow"} <= set(res["overflow"]),
+          f"imp_frame: overflow counters {sorted(res['overflow'])}")
+    rcap = int(H * W * fitted.ray_capacity_frac)
+    # the compactions in order: rays, the coarse pass's points, its three
+    # sparse-conv downsamples, the fine pass's points, its downsamples
+    (m_c, cap_c), (m_f, cap_f) = (calls["compact_mask"][i] for i in (1, 5))
+    check(m_c.shape[0] == rcap * DEPTH and m_f.shape[0] == rcap * IMP_DEPTH,
+          f"imp_frame: compactions 1 and 5 have {m_c.shape[0]} and "
+          f"{m_f.shape[0]} samples, expected the {rcap}-ray grids")
+    # the fine pass's point KNN: the nn_1 call whose queries are its budget
+    fine_q = [(q, v) for q, v in calls["nn_1"] if q.shape[0] == cap_f][-1]
+    n_f, nv_f = fine_q[0].shape[0], fine_q[1].shape[0]
+    tile = _cuda.library().sherf_nn1_tile()
+    coop = coop_queries(fine_q[0], tile, torch)
+    # the work this call's data needs: a tile of identical queries (the
+    # budget's padding) is one query's scan
+    ops_nn1 = (n_f - coop + coop // tile) * nv_f * NN1_OPS_PER_PAIR
+    res.update(
+        ray_cap=rcap, coarse_cap=cap_c, fine_cap=cap_f,
+        coarse_survivors=int(m_c.sum()), fine_survivors=int(m_f.sum()),
+        importance_capacity_frac=fitted.importance_capacity_frac,
+        psnr_vs_frame_db=psnr_db(np, o["image_raw"], ref_img),
+        fine_nn_1={"n": n_f, "v": nv_f,
+                   "ms": cuda_ms(lambda: knn.nn_1_cuda(*fine_q), 5, torch),
+                   "plain_ms": cuda_ms(lambda: knn.nn_1_plain(*fine_q), 3,
+                                       torch),
+                   "bound_ms": ops_nn1 / PEAK_F32_FLOPS * 1e3,
+                   "bound_by": "operations", "coop_queries": coop,
+                   "all_pairs_bound_ms": n_f * nv_f * NN1_OPS_PER_PAIR
+                   / PEAK_F32_FLOPS * 1e3},
+        fine_compact_mask={
+            "n": m_f.shape[0], "cap": cap_f,
+            "ms": cuda_ms(lambda: compaction.compact_mask_cuda(m_f, cap_f), 5,
+                          torch),
+            "plain_ms": cuda_ms(lambda: compaction.compact_mask_plain(
+                m_f, cap_f), 3, torch),
+            "bound_ms": (m_f.shape[0] + 5 * cap_f) / PEAK_BYTES_S * 1e3,
+            "bound_by": "bytes"})
+    out["imp_frame"] = res
+    imp_img = o["image_raw"]
+    del o, calls, fine_q, m_c, m_f
+
+    # ... and with the cluster shortlist on (B6 on both passes)
+    sl = build(dataclasses.replace(imp_cfg, render=dataclasses.replace(
+        fitted, knn_shortlist=KNN_SHORTLIST))).eval()
+    o, res, _ = frame("imp_shortlist_frame", sl, IMP_SHORTLIST_LAUNCHES)
+    res["psnr_vs_imp_frame_db"] = psnr = psnr_db(np, o["image_raw"], imp_img)
+    check(psnr == "inf" or psnr >= 45.0,
+          f"imp_shortlist_frame: {psnr} dB from the importance frame < 45")
+    out["imp_shortlist_frame"] = res
+    del sl, o, imp_img
+
+    # ... one train step with it (random u and density noise from the
+    # generator), IMP_TRAIN_STEPS steps timed
+    tm = build(dataclasses.replace(imp_cfg, render=dataclasses.replace(
+        fitted, density_noise=RenderConfig().density_noise)))
+    del m
+    torch.cuda.empty_cache()
+    tcfg = TrainConfig(batch_size=1)
+    state = create_train_state(tm, tcfg)
+    step_fn = make_train_step(tm, smpl_d, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, per_step, metrics = [], [], []
+    with Recorder(shims) as rec:
+        _cuda.reset_launches()
+        for i in range(IMP_TRAIN_STEPS):
+            rec.on = i == 0
+            seen = dict(_cuda.LAUNCHES)
+            ts = time.perf_counter()
+            mt = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            per_step.append({k: _cuda.LAUNCHES[k] - seen[k] for k in seen})
+            metrics.append({k: float(v) for k, v in mt.items()})
+        launches["imp_train"] = per_step[0]
+    for i, (mt, n) in enumerate(zip(metrics, per_step)):
+        check(np.isfinite(mt["loss"]) and np.isfinite(mt["grad_norm"]),
+              f"imp_train step {i + 1}: {mt}")
+        check(mt["overflow"] == 0, f"imp_train step {i + 1}: overflow "
+              f"{mt['overflow']}")
+        check(n == IMP_TRAIN_LAUNCHES, f"imp_train step {i + 1}: launches "
+              f"{n}, expected {IMP_TRAIN_LAUNCHES}")
+    hold("imp_train", rec.calls)
+    out["imp_train"] = {
+        "steps": IMP_TRAIN_STEPS, "step_ms": step_ms,
+        "step_ms_median_2_3": statistics.median(step_ms[1:]),
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+        "launches_per_step": per_step[0], "metrics": metrics}
+    del tm, state, step_fn, rec
+    torch.cuda.empty_cache()
+
+    # (b) the capsule frame, its point budget from its own survivors; the
+    # capsule test's own time on its inputs
+    cap_cfg, surv, seen = capsule_budget(cfg, batch, smpl_d, dev)
+    o, res, _ = frame("capsule_frame", build(cap_cfg).eval(), FRAME_LAUNCHES)
+    pts, verts, joints, smpl_c, radius = seen[0]
+    psnr = psnr_db(np, o["image_raw"], ref_img)
+    check(psnr == "inf" or psnr >= 45.0,
+          f"capsule_frame: {psnr} dB from the default frame < 45")
+    res.update(capsule_survivors=surv, voxel_survivors=voxel_survivors,
+               point_cap=int(M * cap_cfg.render.point_capacity_frac),
+               capsule_points_tested=pts.shape[0], psnr_vs_frame_db=psnr,
+               capsule_mask_ms=cuda_ms(lambda: capsules.prune_mask(
+                   pts, verts, joints, smpl_c, radius), 5, torch))
+    out["capsule_frame"] = res
+    del o, seen, pts, verts
+
+    # (c) the OSG-decoder frame and (d) the SR frame at the CLIs' default
+    # img_resolution (512: 8XDC)
+    osg_cfg = dataclasses.replace(cfg, use_nerf_decoder=False)
+    m = build(osg_cfg, strict=False).eval()
+    _, out["osg_frame"], _ = frame("osg_frame", m, FRAME_LAUNCHES)
+    del m
+    sr_cfg = dataclasses.replace(cfg, use_sr_module=True, img_resolution=512)
+    m = build(sr_cfg, strict=False).eval()
+    o, res, _ = frame("sr_frame", m, FRAME_LAUNCHES)
+    check(tuple(o["image"].shape) == (1, 512, 512, 3),
+          f"sr_frame: image {tuple(o['image'].shape)}")
+    with torch.inference_mode():
+        ws = m.mapping(batch.obs_img)
+        raw = o["image_raw"]
+        res["sr_ms"] = cuda_ms(lambda: m.superresolution(raw, raw, ws), 5,
+                               torch)
+    out["sr_frame"] = res
+    del m, o, raw, ws
+    torch.cuda.empty_cache()
+
+    # the four configurations at a small shape, f32: the card against the
+    # CPU (the decoder's density bias raised, as small_input_vs_cpu)
+    small_batch = make_synthetic_batch(smpl, batch_size=1, H=SMALL_HW,
+                                       W=SMALL_HW, seed=1, device="cpu")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              render=RenderConfig(depth_resolution=SMALL_D,
+                                                  density_noise=0.0))
+    small_fit, _ = calibrate_budgets([small_batch], dataclasses.replace(
+        f32, render=dataclasses.replace(
+            f32.render, depth_resolution_importance=SMALL_DI)),
+        margin=MARGIN, round_to=128)
+    no_imp = dataclasses.replace(small_fit, depth_resolution_importance=0,
+                                 importance_capacity_frac=None)
+    small_cfgs = {
+        "importance": dataclasses.replace(f32, render=small_fit),
+        "capsule": capsule_budget(dataclasses.replace(f32, render=no_imp),
+                                  small_batch, smpl, "cpu")[0],
+        "osg": dataclasses.replace(f32, use_nerf_decoder=False, render=no_imp),
+        "sr": dataclasses.replace(f32, use_sr_module=True, img_resolution=128,
+                                  render=no_imp)}
+    small = {}
+    for name, c in small_cfgs.items():
+        mc = build(c, where="cpu", strict=False).eval()
+        with torch.no_grad():
+            dec = mc.renderer.decoder
+            if c.use_nerf_decoder:
+                dec.alpha.bias += DENSITY_BIAS
+            else:
+                dec.fc1.bias[0] += DENSITY_BIAS
+            ref, diag_c = mc(small_batch, smpl)
+            got, diag_g = mc.to(dev)(small_batch.to(dev), smpl_d)
+        for where, dg in (("cpu", diag_c), ("cuda", diag_g)):
+            check(all(int(v) == 0 for v in dg.values()),
+                  f"small {name} ({where}): overflow {overflow_report(dg)}")
+        acc_max = float(ref["weights_image"].max())
+        check(acc_max > 0.5, f"small {name}: nearly empty (acc max {acc_max})")
+        keys = ("image_raw", "image") if c.use_sr_module else ("image_raw",)
+        small[name] = {"acc_max": acc_max}
+        for k in keys:
+            p = psnr_db(np, got[k], ref[k])
+            check(p == "inf" or p >= 45.0,
+                  f"small {name} GPU vs CPU {k}: {p} dB < 45")
+            small[name][f"{k}_psnr_db"] = p
+        del mc, ref, got
+    out["small_vs_cpu"] = small
+    torch.cuda.empty_cache()
+    return out, cases, errs
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_all = time.perf_counter()
@@ -1415,6 +1772,14 @@ def main():
         k: statistics.median(v) for k, v in turns.items()}, frame_ms=turns)
     del sl_model, img, modes, mdl
 
+    # ---- branches: importance, capsule, OSG, SR at full width ------------
+    t0 = time.perf_counter()
+    branch, branch_cases, branch_errs = branches(
+        torch, np, dev, cfg, out_sh, model, batch, smpl, smpl_d, shims,
+        launches, frame_survivors["points"])
+    phase("branches", t0, **branch)
+    torch.cuda.empty_cache()
+
     # ---- train: the production train step, 5 steps at batch 1 ------------
     t0 = time.perf_counter()
     train_cfg = dataclasses.replace(cfg, render=dataclasses.replace(
@@ -1476,7 +1841,7 @@ def main():
     # (these direct *_cuda calls add to LAUNCHES, which was read above)
     t0 = time.perf_counter()
     rows, cases = [], []
-    errs = {k: 0.0 for k in PORT_KERNELS}
+    errs = dict(branch_errs)
 
     def note_err(key, a, b):
         e = max_abs(a, b)
@@ -2106,7 +2471,7 @@ def main():
             row["max_abs_err"] = max(row["max_abs_err"], load_errs[row["name"]])
     phase("loaders", t0, **load)
     phase("kernels", time.perf_counter() - kernels_s,
-          cases=cases + life_cases + load_cases)
+          cases=cases + branch_cases + life_cases + load_cases)
     torch.cuda.empty_cache()
 
     # ---- agreement with the CPU path on a small input --------------------

@@ -162,4 +162,11 @@ def calibrate_budgets(batches: Iterable, cfg, margin: float = 1.2,
         point_capacity_frac=caps["voxel"] / M,
         exact_capacity_frac=caps["exact"] / M,
     )
+    if rcfg.depth_resolution_importance > 0:
+        # the fine pass's PDF depths gather inside occupied space, so the
+        # stratified grid's survivor share undersizes them: cover every
+        # fine sample of every budgeted ray (rays_cap * Di), which the
+        # prune can only shrink
+        fitted = dataclasses.replace(
+            fitted, importance_capacity_frac=caps["rays"] / H_W)
     return fitted, worst

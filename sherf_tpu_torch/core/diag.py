@@ -8,7 +8,8 @@ dict that the renderer returns beside its outputs, one entry per leaf of
 that collection:
 
   renderer: ray_overflow / point_overflow / exact_overflow / step_overflow /
-            knn_shortlist_overflow
+            knn_shortlist_overflow; with the importance pass
+            imp_coarse_overflow / imp_fine_overflow
   encoder_3d downsamples: down0.site_overflow / down1.site_overflow /
             down2.site_overflow
 

@@ -11,13 +11,14 @@ have no imaging package):
     ``src = min(floor(dst * (1 / (dst_size / src_size))), src_size - 1)``;
   * ``fill_poly`` — ``cv2.fillPoly`` with 8-connected edges: each edge's
     Bresenham line (``cv2.line``'s pixels, clipped as ``clipLine``
-    clips), then the scanline fill of OpenCV's ``FillEdgeCollection``
-    in its 16.16 fixed point, with the edge slopes, span ends and clipped
-    edges of OpenCV 5 (found by holding it to cv2 5.0: slopes floored,
-    a span's right end excluded where it falls on a pixel boundary).
-    Bit-equal for polygons inside the image; a polygon partly off it
-    may differ by a pixel or two along the image border (the measured
-    bound the tests hold: 2 pixels a box);
+    clips), then the scanline fill of OpenCV's ``FillEdgeCollection``,
+    with the edge slopes, span ends and clipped edges of OpenCV 5 (found
+    by holding it to cv2 5.0: slopes floored in 32 fractional bits, where
+    16 drift a pixel off cv2's over a few hundred rows; a span's right
+    end excluded where it falls on a pixel boundary; an edge that leaves
+    the image follows its clipped segment and, in the rows beyond that
+    segment, the border it left by).  Bit-equal, inside the image and
+    partly off it;
   * ``undistort`` — ``cv2.undistort``: ``initUndistortRectifyMap`` in the
     stripes cv2 computes it in, coordinates quantised to 1/32 pixel, then
     a bilinear ``remap`` with cv2's float weights and a constant-0 border;
@@ -30,8 +31,7 @@ import math
 
 import numpy as np
 
-XY_SHIFT = 16
-XY_ONE = 1 << XY_SHIFT
+EDGE_SHIFT = 32
 INTER_BITS = 5
 INTER_TAB_SIZE = 1 << INTER_BITS
 
@@ -167,86 +167,70 @@ def line_pixels(w: int, h: int, x1, y1, x2, y2):
 def _poly_edges(img, pts):
     """OpenCV's ``CollectPolyEdges`` (shift 0, 8-connected): draws each
     edge's line into ``img`` and returns the non-horizontal edges as
-    [y0, y1, x, dx] in 16.16 fixed point."""
+    [y0, y1, x, dx, cy0, cy1, x_above, x_below], x and dx in fixed point
+    with ``EDGE_SHIFT`` fractional bits.  An edge that leaves the image
+    takes the slope and x of its clipped segment (``clipLine``'s integer
+    endpoints); where that segment spans rows cy0..cy1, the edge's rows
+    above cy0 sit at ``x_above`` and its rows below cy1 at ``x_below``: 0
+    where the edge's end on that side lies left of the image, the image's
+    width where it lies right of it, None (the segment's line) where it
+    lies above or below the image."""
     h, w = img.shape
+    half = 1 << (EDGE_SHIFT - 1)
+    side = lambda tx: (0 if tx < 0 else w << EDGE_SHIFT if tx >= w
+                       else None)
     edges = []
-    n = len(pts)
-    x0, y0 = int(pts[-1][0]) << XY_SHIFT, int(pts[-1][1])
-    for i in range(n):
-        x1, y1 = int(pts[i][0]) << XY_SHIFT, int(pts[i][1])
-        t0x = (x0 + (XY_ONE >> 1)) >> XY_SHIFT
-        t1x = (x1 + (XY_ONE >> 1)) >> XY_SHIFT
-        xs, ys = line_pixels(w, h, t0x, y0, t1x, y1)
+    x0, y0 = pts[-1]
+    for x1, y1 in pts:
+        xs, ys = line_pixels(w, h, x0, y0, x1, y1)
         img[ys, xs] = 1
-        p0x, p0y, p1x, p1y = x0, y0, x1, y1
-        if not (0 <= t0x < w and 0 <= t1x < w and 0 <= y0 < h
-                and 0 <= y1 < h):
-            # the edge takes the clipped segment's x (and its y where the
-            # segment is not horizontal)
-            _, c0x, c0y, c1x, c1y = clip_line(w, h, t0x, y0, t1x, y1)
-            if c0y != c1y:
-                p0y, p1y = c0y, c1y
-            p0x, p1x = c0x << XY_SHIFT, c1x << XY_SHIFT
-        p0x += XY_ONE >> 1
-        p1x += XY_ONE >> 1
         if y0 != y1:
-            ddx = (p1x - p0x) // (p1y - p0y)
-            if y0 < y1:
-                edges.append([y0, y1, p0x + (y0 - p0y) * ddx, ddx])
+            c0x, c0y, c1x, c1y = x0, y0, x1, y1
+            rows = None
+            if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h
+                    and 0 <= y1 < h):
+                inside, c0x, c0y, c1x, c1y = clip_line(w, h, x0, y0, x1, y1)
+                if c0y == c1y:
+                    c0y, c1y = y0, y1
+                elif inside:
+                    rows = (c0y, c1y)
+            dx = ((c1x - c0x) << EDGE_SHIFT) // (c1y - c0y)
+            # [row, x, clipped x, clipped row] of the upper end, the lower
+            (ya, xa, cxa, cya), (yb, xb, _, cyb) = sorted(
+                [(y0, x0, c0x, c0y), (y1, x1, c1x, c1y)])
+            x = (cxa << EDGE_SHIFT) + half + (ya - cya) * dx
+            if rows is None:
+                edges.append([ya, yb, x, dx, ya, yb, None, None])
             else:
-                edges.append([y1, y0, p1x + (y1 - p1y) * ddx, ddx])
+                edges.append([ya, yb, x, dx, cya, cyb, side(xa), side(xb)])
         x0, y0 = x1, y1
     return edges
 
 
 def _fill_edges(img, edges):
-    """OpenCV's ``FillEdgeCollection`` (non-antialiased): the active edge
-    list walked as OpenCV walks its linked list, so that edges that
-    clipping left unpaired behave as they do there."""
+    """OpenCV's ``FillEdgeCollection`` (non-antialiased): every row's
+    active edges sorted by x and filled pairwise, a span from its left
+    edge's pixel to the pixel before its right edge's."""
     h, w = img.shape
-    total = len(edges)
-    if total < 2:
+    if len(edges) < 2:
         return
-    y_min = min(e[0] for e in edges)
-    y_max = max(e[1] for e in edges)
-    xs = [e[2] for e in edges] + [e[2] + (e[1] - e[0]) * e[3] for e in edges]
-    if y_max < 0 or y_min >= h or max(xs) < 0 or min(xs) >= (w << XY_SHIFT):
-        return
-    edges = sorted(edges, key=lambda e: (e[0], e[2], e[3]))
-    edges.append([float("inf"), 0, 0, 0])          # OpenCV's sentinel
-    y_max = min(y_max, h)
-    active = []
-    i = 0
-    for y in range(edges[0][0], y_max):
-        out = []
-        li = 0
-        draw = False
-        while li < len(active) or edges[i][0] == y:
-            last = active[li] if li < len(active) else None
-            if last is not None and last[1] == y:
-                li += 1                              # the edge ends here
+    for y in range(max(min(e[0] for e in edges), 0),
+                   min(max(e[1] for e in edges), h)):
+        xs = []
+        for y0, y1, x, dx, cy0, cy1, x_above, x_below in edges:
+            if not y0 <= y < y1:
                 continue
-            e = edges[i]
-            if last is not None and (e[0] > y or last[2] < e[2]):
-                out.append(last)
-                li += 1
-            elif i < total:
-                out.append(e)                        # the edge starts here
-                i += 1
+            if y < cy0 and x_above is not None:
+                xs.append(x_above)
+            elif y > cy1 and x_below is not None:
+                xs.append(x_below)
             else:
-                break
-            if draw:
-                a, b = out[-2], out[-1]
-                if y >= 0:
-                    lo, hi = (b, a) if a[2] > b[2] else (a, b)
-                    x1, x2 = lo[2] >> XY_SHIFT, (hi[2] - 1) >> XY_SHIFT
-                    if x1 < w and x2 >= 0:
-                        img[y, max(x1, 0):min(x2, w - 1) + 1] = 1
-                a[2] += a[3]
-                b[2] += b[3]
-            draw = not draw
-        # OpenCV re-sorts the list by x with a (stable) bubble sort
-        active = sorted(out, key=lambda e: e[2])
+                xs.append(x + (y - y0) * dx)
+        xs.sort()
+        for a, b in zip(xs[0::2], xs[1::2]):
+            x1, x2 = a >> EDGE_SHIFT, (b - 1) >> EDGE_SHIFT
+            if x1 < w and x2 >= 0:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = 1
 
 
 def fill_poly(img: np.ndarray, pts) -> np.ndarray:

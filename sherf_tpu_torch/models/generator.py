@@ -1,7 +1,8 @@
 """SHERFGenerator (torch counterpart of ``sherf_tpu/models/generator.py``):
 two ResNet18 encoders, a StyleGAN2 triplane backbone conditioned on the
 observation image, a sparse canonical feature volume built from
-pixel-aligned observation-vertex features, and the volumetric renderer.
+pixel-aligned observation-vertex features, the volumetric renderer and,
+with ``use_sr_module``, EG3D's super-resolution head on ``image_raw``.
 
 ``forward(batch, smpl)`` returns ``(out, diag)``: the image dict of the JAX
 generator and the renderer's budget-overflow counters.  The forward records
@@ -27,8 +28,10 @@ from sherf_tpu_torch.features.layers import Dense
 from sherf_tpu_torch.features.resnet import ResNet18
 from sherf_tpu_torch.features.sparseconv import voxelize_coords
 from sherf_tpu_torch.features.stylegan2 import StyleGAN2Backbone
+from sherf_tpu_torch.features.superresolution import SuperresolutionHybrid
 from sherf_tpu_torch.geometry.rays import backface_mask, project_points
 from sherf_tpu_torch.kernels.grid_sample import grid_sample_2d
+from sherf_tpu_torch.nerf.decoders import OSGDecoder
 from sherf_tpu_torch.nerf.renderer import SHERFRenderer
 from sherf_tpu_torch.nerf.warp import (
     batch_pose_contexts, deform_target2c)
@@ -40,8 +43,6 @@ class SHERFGenerator(nn.Module):
                  out_sh: Tuple[int, int, int] = (128, 352, 416),
                  device="cuda"):
         super().__init__()
-        if cfg.use_sr_module:
-            raise NotImplementedError("the super-resolution head is not ported")
         self.cfg = cfg
         use_bf16 = cfg.compute_dtype == "bfloat16"
         enc_dtype = torch.bfloat16 if use_bf16 else torch.float32
@@ -56,6 +57,11 @@ class SHERFGenerator(nn.Module):
         # obs vertex features 64 + 32 -> 32
         self.conv1d_projection = Dense(96, cfg.plane_channels)
         self.renderer = SHERFRenderer(cfg, out_sh)
+        if cfg.use_sr_module:
+            # fed the 3-channel image_raw twice, as the JAX package wires it
+            self.superresolution = SuperresolutionHybrid(
+                img_resolution=cfg.img_resolution, channels=3,
+                w_dim=cfg.w_dim)
         self.to(device)
 
     # ------------------------------------------------------------------
@@ -131,7 +137,14 @@ class SHERFGenerator(nn.Module):
         out = {"image_raw": rgb.reshape(B, H, W, 3),
                "image_depth": depth.reshape(B, H, W),
                "weights_image": acc.reshape(B, H, W)}
-        out["image"] = out["image_raw"]
+        if cfg.use_sr_module:
+            # the loss and the eval metrics read image_raw, as in the JAX
+            # package: the head gets no reconstruction gradient
+            out["image"] = self.superresolution(
+                out["image_raw"], out["image_raw"], ws, noise_mode=noise_mode,
+                fused_modconv=not train)
+        else:
+            out["image"] = out["image_raw"]
         return out, diag
 
     # ------------------------------------------------------------------
@@ -149,8 +162,12 @@ class SHERFGenerator(nn.Module):
 @torch.no_grad()
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every float parameter of ``model`` from N(0, 1 / fan_in)
-    (N(0, 1) for StyleGAN2's unit-scale weights and scalars), using only
-    ``generator``.  Buffers (running statistics, noise) keep their values."""
+    (N(0, 1) for the unit-scale weights and scalars of StyleGAN2's layers:
+    the backbone, the SR head, the OSG decoder), using only ``generator``.
+    Buffers (running statistics, noise) keep their values."""
+    unit = tuple(f"{n}." if n else "" for n, m in model.named_modules()
+                 if isinstance(m, (StyleGAN2Backbone, SuperresolutionHybrid,
+                                   OSGDecoder)))
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         shape = tuple(p.shape)
@@ -158,7 +175,7 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             val = torch.randn(shape, generator=generator) * 0.1
             if name.endswith("affine.bias"):
                 val = val + 1.0
-        elif ".backbone." in f".{name}" or name.startswith("backbone."):
+        elif name.startswith(unit):
             val = torch.randn(shape, generator=generator)
         else:
             fan_in = int(np.prod(shape[1:])) if p.dim() > 1 else shape[0]

@@ -1,6 +1,7 @@
-"""NeRF decoder (torch counterpart of ``NeRFDecoder`` in
-``sherf_tpu/nerf/decoders.py``): an 8x128 MLP with a skip at layer 4 and a
-view-conditioned rgb branch."""
+"""NeRF decoders (torch counterpart of ``sherf_tpu/nerf/decoders.py``): the
+production ``NeRFDecoder``, an 8x128 MLP with a skip at layer 4 and a
+view-conditioned rgb branch, and ``OSGDecoder``, EG3D's two-layer softplus
+head of the ``use_nerf_decoder=False`` branch."""
 
 from __future__ import annotations
 
@@ -9,8 +10,32 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sherf_tpu_torch.features.layers import Dense
+from sherf_tpu_torch.features.stylegan2 import EqualDense
 
 SIGMOID_WIDEN = 0.001
+
+
+class OSGDecoder(nn.Module):
+    """Mean over the planes -> EqualDense(64) -> softplus -> EqualDense(4):
+    sigma and the widened sigmoid of three colours."""
+
+    def __init__(self, n_features: int = 32, hidden_dim: int = 64,
+                 out_dim: int = 3, lr_multiplier: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc0 = EqualDense(n_features, hidden_dim,
+                              lr_multiplier=lr_multiplier)
+        self.fc1 = EqualDense(hidden_dim, 1 + out_dim,
+                              lr_multiplier=lr_multiplier)
+        self.dtype = dtype
+
+    def forward(self, sampled_features, ray_directions=None):
+        """sampled_features (n_planes, N, C) -> {"rgb": (N, 3) f32,
+        "sigma": (N, 1) f32}; the directions are not read."""
+        x = sampled_features.float().mean(dim=0).to(self.dtype)
+        x = self.fc1(F.softplus(self.fc0(x))).float()
+        rgb = torch.sigmoid(x[..., 1:]) * (1 + 2 * SIGMOID_WIDEN) - SIGMOID_WIDEN
+        return {"rgb": rgb, "sigma": x[..., 0:1]}
 
 
 class NeRFDecoder(nn.Module):

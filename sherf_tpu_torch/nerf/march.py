@@ -4,8 +4,19 @@ segmented marcher that composites the compacted survivor points directly."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def linspace01(D: int, device) -> torch.Tensor:
+    """``jnp.linspace(0, 1, D)`` value for value: i * (1 / (D - 1)) in f32,
+    last entry exactly 1 (torch.linspace rounds its upper half differently)."""
+    if D == 1:
+        return torch.zeros(1, device=device)
+    s = np.arange(D, dtype=np.float32) * np.float32(1.0 / (D - 1))
+    s[-1] = 1.0
+    return torch.from_numpy(s).to(device)
 
 
 def _sigma(densities: torch.Tensor, clamp_mode: str) -> torch.Tensor:

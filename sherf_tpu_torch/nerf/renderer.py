@@ -1,7 +1,7 @@
 """The SHERF volumetric renderer (torch counterpart of
 ``sherf_tpu/nerf/renderer.py``: ``SHERFRenderer.__call__`` in its budgeted
-and parity branches, ``_compact_rays``, ``_scatter_rays_back`` and
-``decode_points``).
+and parity branches, the importance pass of both, ``_compact_rays``,
+``_scatter_rays_back`` and ``decode_points`` with either decoder).
 
 Budgeted mode (``point_capacity_frac < 1``):
   ray compaction (AABB hit AND ``ray_body_mask``) -> stratified samples ->
@@ -14,7 +14,17 @@ With ``knn_cluster.CLUSTERED`` set, the KNNs take ``nn_1_clustered`` and the
 ray prune ``ray_body_mask_clustered``; ``render.knn_shortlist > 0`` sends
 both budgeted-mode KNNs to ``nn_1_shortlist`` and records
 ``knn_shortlist_overflow``.
+``prune_mode="capsule"`` replaces the strided occupancy prune by the bone
+capsules of ``kernels/capsules.py`` (a looser superset of the exact test:
+size ``point_capacity_frac`` from its survivors, not the voxel prune's).
 Parity mode computes every sample and masks the output.
+
+``depth_resolution_importance > 0`` adds EG3D's fine pass
+(``_render_one_importance``): the coarse pass's weights give each ray
+``depth_resolution_importance`` more depths, decoded and marched together
+with the coarse samples.  In budgeted mode each pass runs the stride-1
+occupancy prune, ``compact_mask`` to its own budget and the exact KNN, and
+scatters its samples back to a dense grid.
 
 Training (``train=True``) adds density noise ``sigma + N(0, 1) *
 density_noise`` to every decoded sample, drawn from the caller's
@@ -48,23 +58,15 @@ from sherf_tpu_torch.kernels.grid_sample import grid_sample_2d, triplane_sample_
 from sherf_tpu_torch.kernels import knn_cluster
 from sherf_tpu_torch.kernels.knn import (
     nn_1_diag, nn_1_tables, nn_1_tables_diag, ray_body_mask)
-from sherf_tpu_torch.kernels.occupancy import strided_occupancy
-from sherf_tpu_torch.nerf.decoders import NeRFDecoder
-from sherf_tpu_torch.nerf.march import ray_march, ray_march_segmented
+from sherf_tpu_torch.kernels.capsules import prune_mask
+from sherf_tpu_torch.kernels.occupancy import occupancy_mask, strided_occupancy
+from sherf_tpu_torch.nerf.decoders import NeRFDecoder, OSGDecoder
+from sherf_tpu_torch.nerf.importance import sample_importance
+from sherf_tpu_torch.nerf.march import linspace01, ray_march, ray_march_segmented
 from sherf_tpu_torch.nerf.warp import (
     PoseContext, c2source_tables, deform_c2source_from_tables,
     deform_target2c_from_tables, target2c_tables)
 from sherf_tpu_torch.smpl.model import SMPLModel
-
-
-def linspace01(D: int, device) -> torch.Tensor:
-    """``jnp.linspace(0, 1, D)`` value for value: i * (1 / (D - 1)) in f32,
-    last entry exactly 1 (torch.linspace rounds its upper half differently)."""
-    if D == 1:
-        return torch.zeros(1, device=device)
-    s = np.arange(D, dtype=np.float32) * np.float32(1.0 / (D - 1))
-    s[-1] = 1.0
-    return torch.from_numpy(s).to(device)
 
 
 def sample_from_planes(planes: torch.Tensor, pts_norm: torch.Tensor):
@@ -119,9 +121,10 @@ class SHERFRenderer(nn.Module):
         if cfg.use_trans:
             self.transformer = PlaneTransformer(dim=cfg.plane_channels,
                                                 dtype=cdt)
-        if not cfg.use_nerf_decoder:
-            raise NotImplementedError("the port has the NeRF decoder only")
-        self.decoder = NeRFDecoder(dtype=cdt)
+        if cfg.use_nerf_decoder:
+            self.decoder = NeRFDecoder(dtype=cdt)
+        else:
+            self.decoder = OSGDecoder(n_features=cfg.plane_channels, dtype=cdt)
 
     # ------------------------------------------------------------------
     def forward(self, planes: Optional[torch.Tensor],      # (B, 3, Hp, Wp, C)
@@ -140,7 +143,10 @@ class SHERFRenderer(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """Returns (rgb (B, N, 3), depth (B, N), acc (B, N), diag).
         ``train`` adds density noise from ``generator`` (required when
-        ``cfg.render.density_noise > 0``)."""
+        ``cfg.render.density_noise > 0``); with the importance pass on, a
+        train-mode call with a ``generator`` also draws the fine pass's u
+        from it (linspace otherwise, as the JAX package's
+        ``train and has_rng("density")``)."""
         rc = self.cfg.render
         noise = None
         if train and rc.density_noise > 0:
@@ -148,30 +154,59 @@ class SHERFRenderer(nn.Module):
                 raise ValueError("train mode with density_noise > 0 draws its "
                                  "noise from an explicit torch.Generator")
             noise = (generator, rc.density_noise)
-        if rc.depth_resolution_importance > 0:
-            raise NotImplementedError("the importance pass is not ported")
-        if rc.prune_mode != "voxel":
-            raise NotImplementedError("only prune_mode='voxel' is ported")
+        if rc.prune_mode not in ("voxel", "capsule"):
+            raise ValueError(f"unknown prune_mode {rc.prune_mode!r}")
+        u_gen = generator if train else None
         diag = Diag()
         outs = []
         for b in range(ray_o.shape[0]):
             pick = lambda t: None if t is None else t[b]
-            outs.append(self._render_one(
-                pick(planes), obs_img[b], pick(obs_feat), pick(vol_feats),
-                pick(vol_coords), min_dhw[b], ray_o[b], ray_d[b], near[b],
-                far[b], ctx_target[b], ctx_big[b], ctx_obs[b], vertices[b],
-                t_vertices[b], t_bounds[b], obs_K[b], obs_R[b], obs_T[b],
-                smpl, pick(ray_mask), diag, noise))
+            # decode_points' arguments around the points, in its order
+            bank = (pick(planes), obs_img[b], pick(obs_feat), pick(vol_feats),
+                    pick(vol_coords), min_dhw[b], ctx_obs[b], ctx_big[b],
+                    t_vertices[b], t_bounds[b], obs_K[b], obs_R[b], obs_T[b],
+                    smpl, diag)
+            rays = (ray_o[b], ray_d[b], near[b], far[b])
+            if rc.depth_resolution_importance > 0:
+                outs.append(self._render_one_importance(
+                    bank, *rays, ctx_target[b], vertices[b], pick(ray_mask),
+                    noise, u_gen))
+            else:
+                outs.append(self._render_one(
+                    bank, *rays, ctx_target[b], vertices[b], pick(ray_mask),
+                    noise))
         rgb, depth, acc = (torch.stack(t) for t in zip(*outs))
         return rgb, depth, acc, diag
 
     # ------------------------------------------------------------------
-    def _render_one(self, planes, obs_img, obs_feat, vol_feats, vol_coords,
-                    min_dhw, ray_o, ray_d, near, far, ct, cb, co, vertices,
-                    t_vertices, t_bounds, obs_K, obs_R, obs_T, smpl, ray_mask,
-                    diag: Diag, noise=None):
-        rc = self.cfg.render
+    def _bank(self, bank):
+        """The per-item feature-bank inputs in the compute dtype."""
         cdt = self.cdt
+        cast = lambda t: None if t is None else t.to(cdt)
+        planes, obs_img, obs_feat, vol_feats = bank[:4]
+        return (cast(planes), obs_img, cast(obs_feat), cast(vol_feats)) \
+            + tuple(bank[4:])
+
+    def _shade(self, bank, ct, pay_t2c, q_s, qd_s, exact, noise):
+        """Samples in the SMPL frame -> canonical -> feature banks and
+        decoder: (rgb (M, 3), densities (M,)), the density -80 where
+        ``exact`` is False and noised in training."""
+        cb = bank[7]
+        can, can_dir = deform_target2c_from_tables(ct, cb, pay_t2c, q_s, qd_s)
+        out = self.decode_points(*bank[:6], can, can_dir, *bank[6:])
+        sigma = out["sigma"][:, 0]
+        if noise is not None:
+            gen, scale = noise
+            sigma = sigma + torch.randn(sigma.shape, generator=gen,
+                                        device=sigma.device,
+                                        dtype=sigma.dtype) * scale
+        return out["rgb"], torch.where(exact, sigma,
+                                       torch.full_like(sigma, -80.0))
+
+    def _render_one(self, bank, ray_o, ray_d, near, far, ct, vertices,
+                    ray_mask, noise=None):
+        rc = self.cfg.render
+        diag, smpl, cb = bank[-1], bank[-2], bank[7]
         D = rc.depth_resolution
         N = N_full = ray_o.shape[0]
         dev = ray_o.device
@@ -181,9 +216,7 @@ class SHERFRenderer(nn.Module):
                 and rc.point_capacity_frac < 1.0):
             ray_o, ray_d, near, far, ray_sel, N = self._compact_rays(
                 ray_o, ray_d, near, far, ray_mask, vertices, diag)
-        planes = None if planes is None else planes.to(cdt)
-        obs_feat = None if obs_feat is None else obs_feat.to(cdt)
-        vol_feats = None if vol_feats is None else vol_feats.to(cdt)
+        bank = self._bank(bank)
 
         steps = linspace01(D, dev)
         depths = near[:, None] + (far - near)[:, None] * steps          # (N, D)
@@ -194,14 +227,20 @@ class SHERFRenderer(nn.Module):
 
         if rc.point_capacity_frac < 1.0:
             radius = float(np.sqrt(rc.prune_threshold_sq))
-            stride = rc.prune_stride if D >= 24 else 1
-            if stride > 1:
-                step_f = (far - near) / (D - 1)
-                diag.record("step_overflow", torch.ceil(
-                    (step_f.max() - rc.prune_step_margin) * 1e3).to(torch.int32))
-            occ = strided_occupancy(pts.reshape(N, D, 3), vertices,
-                                    radius=radius, stride=stride,
-                                    step_margin=rc.prune_step_margin)
+            if rc.prune_mode == "capsule":
+                # the bone capsules, in the SMPL frame
+                occ = prune_mask(_rot3(pts - ct.Th, ct.R), tar_smpl,
+                                 ct.joints, smpl, radius)
+            else:
+                stride = rc.prune_stride if D >= 24 else 1
+                if stride > 1:
+                    step_f = (far - near) / (D - 1)
+                    diag.record("step_overflow", torch.ceil(
+                        (step_f.max() - rc.prune_step_margin) * 1e3
+                    ).to(torch.int32))
+                occ = strided_occupancy(pts.reshape(N, D, 3), vertices,
+                                        radius=radius, stride=stride,
+                                        step_margin=rc.prune_step_margin)
             # capacity is defined on the FULL candidate set
             cap = min(_round_up(max(int(N_full * D * rc.point_capacity_frac),
                                     128), 128), M)
@@ -242,19 +281,8 @@ class SHERFRenderer(nn.Module):
             exact_s = d2 < rc.prune_threshold_sq
             idx = None
 
-        can, can_dir = deform_target2c_from_tables(ct, cb, pay_t2c, q_s, qd_s)
-        out = self.decode_points(planes, obs_img, obs_feat, vol_feats,
-                                 vol_coords, min_dhw, can, can_dir, co, cb,
-                                 t_vertices, t_bounds, obs_K, obs_R, obs_T,
-                                 smpl, diag)
-        rgb_pts = out["rgb"]
-        sigma_pts = out["sigma"][:, 0]
-        if noise is not None:
-            gen, scale = noise
-            sigma_pts = sigma_pts + torch.randn(
-                sigma_pts.shape, generator=gen, device=sigma_pts.device,
-                dtype=sigma_pts.dtype) * scale
-        dens = torch.where(exact_s, sigma_pts, torch.full_like(sigma_pts, -80.0))
+        rgb_pts, dens = self._shade(bank, ct, pay_t2c, q_s, qd_s, exact_s,
+                                    noise)
 
         if idx is not None:
             clip = None if ray_sel is None else (ray_sel[2], ray_sel[3])
@@ -271,6 +299,112 @@ class SHERFRenderer(nn.Module):
                                         ray_d, clamp_mode=rc.clamp_mode,
                                         white_back=rc.white_back)
         return rgb, depth, weights.sum(dim=-1)
+
+    # ------------------------------------------------------------------
+    def _render_one_importance(self, bank, ray_o, ray_d, near, far, ct,
+                               vertices, ray_mask, noise=None, u_gen=None):
+        """The hierarchical pass: coarse samples on the stratified grid ->
+        their weights -> importance depths from the smoothed PDF (no
+        gradient through them) -> fine samples -> both sets sorted by depth
+        and marched together.  Parity mode (``point_capacity_frac == 1``)
+        computes every sample; budgeted mode compacts the rays (when
+        ``ray_capacity_frac < 1``) and each pass's samples to its budget
+        (``point_capacity_frac``, ``importance_capacity_frac``), counting
+        ``imp_coarse_overflow`` / ``imp_fine_overflow``."""
+        rc = self.cfg.render
+        diag, smpl, cb = bank[-1], bank[-2], bank[7]
+        D, Di = rc.depth_resolution, rc.depth_resolution_importance
+        budgeted = rc.point_capacity_frac < 1.0
+        N_full = ray_o.shape[0]
+        ray_sel = None
+        if budgeted and ray_mask is not None and rc.ray_capacity_frac < 1.0:
+            ray_o, ray_d, near, far, ray_sel, _ = self._compact_rays(
+                ray_o, ray_d, near, far, ray_mask, vertices, diag)
+        bank = self._bank(bank)
+        tar_smpl = _rot3(vertices - ct.Th, ct.R)
+        tab_t2c = target2c_tables(smpl, ct, cb)
+        fine_frac = (rc.importance_capacity_frac
+                     if rc.importance_capacity_frac is not None
+                     else rc.point_capacity_frac)
+
+        def grid_pass(depths, cap_frac, name):
+            args = (depths, ray_o, ray_d, ct, tar_smpl, tab_t2c, bank, noise)
+            if budgeted:
+                return self._eval_points_budgeted(
+                    *args, vertices, cap_frac, N_full * depths.shape[1], name)
+            return self._eval_points_full(*args)
+
+        steps = linspace01(D, ray_o.device)
+        depths = near[:, None] + (far - near)[:, None] * steps          # (N, D)
+        col_c, den_c = grid_pass(depths, rc.point_capacity_frac,
+                                 "imp_coarse_overflow")
+        march = dict(clamp_mode=rc.clamp_mode, white_back=rc.white_back)
+        _, _, w = ray_march(col_c, den_c, depths, ray_d, **march)
+        z_fine = sample_importance(depths, w.detach(), Di, det=u_gen is None,
+                                   generator=u_gen).detach()
+        col_f, den_f = grid_pass(z_fine, fine_frac, "imp_fine_overflow")
+
+        # the union, sorted by depth (stable, as jnp.argsort)
+        all_d = torch.cat([depths, z_fine], dim=-1)
+        order = torch.argsort(all_d, dim=-1, stable=True)
+        all_d = all_d.gather(-1, order)
+        all_c = torch.cat([col_c, col_f], dim=1).gather(
+            1, order[..., None].expand(-1, -1, 3))
+        all_s = torch.cat([den_c, den_f], dim=1).gather(1, order)
+        rgb, depth, weights = ray_march(all_c, all_s, all_d, ray_d, **march)
+        acc = weights.sum(dim=-1)
+        if ray_sel is None:
+            return rgb, depth, acc
+        return self._scatter_rays_back(rgb, depth, acc, ray_sel, N_full)
+
+    def _eval_points_full(self, depths, ray_o, ray_d, ct, tar_smpl, tab_t2c,
+                          bank, noise):
+        """Every sample of an (N, Dx) depth grid through the exact KNN and
+        the decoder, failures masked: (colors (N, Dx, 3), dens (N, Dx))."""
+        rc = self.cfg.render
+        N, Dx = depths.shape
+        pts = (ray_o[:, None] + depths[..., None] * ray_d[:, None]).reshape(-1, 3)
+        q = _rot3(pts - ct.Th, ct.R)
+        qd = _rot3(ray_d[:, None].expand(N, Dx, 3).reshape(-1, 3), ct.R)
+        d2, _, pay = nn_1_tables(q, tar_smpl, tab_t2c)
+        mask = d2 < rc.prune_threshold_sq
+        rgb, dens = self._shade(bank, ct, pay, q, qd, mask, noise)
+        return (rgb * mask[:, None]).reshape(N, Dx, 3), dens.reshape(N, Dx)
+
+    def _eval_points_budgeted(self, depths, ray_o, ray_d, ct, tar_smpl,
+                              tab_t2c, bank, noise, vertices, cap_frac: float,
+                              n_total: int, name: str):
+        """An (N, Dx) depth grid through the stride-1 occupancy prune, a
+        ``compact_mask`` to ``cap_frac`` of ``n_total``, the exact KNN and
+        the decoder, then scattered back to the dense grid (pruned samples
+        empty): (colors (N, Dx, 3), dens (N, Dx)) in f32."""
+        rc = self.cfg.render
+        diag = bank[-1]
+        N, Dx = depths.shape
+        M = N * Dx
+        pts = (ray_o[:, None] + depths[..., None] * ray_d[:, None]).reshape(M, 3)
+        occ = occupancy_mask(pts, vertices,
+                             radius=float(np.sqrt(rc.prune_threshold_sq)))
+        cap = min(_round_up(max(int(n_total * cap_frac), 128), 128), M)
+        diag.record(name, occ.sum() - cap)
+        idx, valid = compact_mask(occ, cap)
+        gidx = torch.clamp(idx.long(), max=M - 1)
+        q_s = _rot3(pts[gidx] - ct.Th, ct.R)
+        qd_s = _rot3(ray_d[gidx // Dx], ct.R)
+        d2_s, _, pay_t2c, sl_over = nn_1_tables_diag(q_s, tar_smpl, tab_t2c,
+                                                     rc.knn_shortlist)
+        if rc.knn_shortlist > 0:
+            diag.record("knn_shortlist_overflow", sl_over)
+        exact_s = valid & (d2_s < rc.prune_threshold_sq)
+        rgb, dens = self._shade(bank, ct, pay_t2c, q_s, qd_s, exact_s, noise)
+        # each slot to its own row: the valid ones to their samples, the
+        # rest past the grid (cut off), so autograd reaches every kept slot
+        slot = torch.where(valid, gidx, M + torch.arange(cap, device=gidx.device))
+        col = rgb.new_zeros((M + cap, 3), dtype=torch.float32).index_copy(
+            0, slot, (rgb * exact_s[:, None]).float())
+        den = torch.full((M + cap,), -80.0, device=dens.device).index_copy(
+            0, slot, dens.float())
+        return col[:M].reshape(N, Dx, 3), den[:M].reshape(N, Dx)
 
     # ------------------------------------------------------------------
     def _compact_rays(self, ray_o, ray_d, near, far, ray_mask, vertices,
@@ -370,5 +504,7 @@ class SHERFRenderer(nn.Module):
             fused = self.conv1d_reprojection(fused)
         if cfg.use_trans:
             fused = self.transformer(fused.permute(1, 0, 2)).permute(1, 0, 2)
-        return self.decoder(positional_encoding(can, 6), fused,
-                            positional_encoding(can_dir, 4))
+        if cfg.use_nerf_decoder:
+            return self.decoder(positional_encoding(can, 6), fused,
+                                positional_encoding(can_dir, 4))
+        return self.decoder(fused, can_dir)

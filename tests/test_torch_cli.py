@@ -138,3 +138,71 @@ def test_clis_default_to_cuda_and_never_fall_back(monkeypatch, main, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         main(argv)
+
+
+@pytest.fixture
+def _few_torch_threads():
+    """Two intra-op threads while the real run trains and renders (as
+    ``tests/test_torch_train.py``): the suite runs several test processes
+    on one machine."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(2, before))
+    yield
+    torch.set_num_threads(before)
+
+
+def test_osg_decoder_and_sr_head_train_snapshot_eval(monkeypatch, tmp_path,
+                                                     _few_torch_threads):
+    """``--use_nerf_decoder false --use_sr_module true`` end to end: the
+    flags reach the same ModelConfig as in the JAX CLI, then the port's
+    train CLI trains 2 steps on the synthetic_grid rig (128x128 rays, the
+    SR head's smallest output, x 4 samples) and snapshots, and the eval
+    CLI restores the snapshot into a model with the OSG decoder and the SR
+    head and scores two poses of subject100.  Both CLIs build the test's
+    small widths (backbone 32, narrow channels, 2 cm voxels) and the run
+    is cut to 2 steps and two poses: what is held is the CLIs' handling of
+    the two branches, not the model's size."""
+    flags = ["--cfg", "synthetic_grid",
+             "--neural_rendering_resolution_initial", "128",
+             "--depth_resolution", "4",
+             "--use_nerf_decoder", "false", "--use_sr_module", "true"]
+    calls = {}
+    monkeypatch.setattr(j_loop, "training_loop", _record(calls, "jax"))
+    j_train_cli.main(["--outdir", str(tmp_path / "j"), "--num_instance", "2"]
+                     + flags)
+    cfg_j = calls["jax"][0][0]
+    assert not cfg_j.use_nerf_decoder and cfg_j.use_sr_module
+    assert cfg_j.img_resolution == 128
+
+    small = dict(backbone_resolution=32, channel_base=1024, channel_max=32,
+                 voxel_size=0.02, sparse_conv_layers=2)
+    for cli in (t_train_cli, t_eval_cli):
+        build = cli.model_config_from_args
+        monkeypatch.setattr(cli, "model_config_from_args",
+                            lambda a, build=build: dataclasses.replace(
+                                build(a), **small))
+    train = t_loop.training_loop
+
+    def short(cfg, tcfg, *args, **kwargs):
+        _same_config(dataclasses.replace(cfg_j, **small), cfg)
+        return train(cfg, dataclasses.replace(tcfg, total_kimg=0.002,
+                                              report_imgs=1), *args, **kwargs)
+    monkeypatch.setattr(t_loop, "training_loop", short)
+    run = tmp_path / "run"
+    t_train_cli.main(["--outdir", str(run), "--batch", "1", "--workers", "1",
+                      "--num_instance", "2", "--device", "cpu"] + flags)
+    from sherf_tpu_torch.train.checkpoint import latest_checkpoint
+    snap = latest_checkpoint(str(run / "checkpoints"))
+    state = torch.load(snap, map_location="cpu", weights_only=False)
+    keys = set(state["ema"])
+    assert "renderer.decoder.fc0.weight" in keys
+    assert any(k.startswith("superresolution.block1.") for k in keys)
+
+    grid = dict(t_eval_cli.EVAL_DEFAULTS["synthetic_grid"], pose_num=2)
+    monkeypatch.setitem(t_eval_cli.EVAL_DEFAULTS, "synthetic_grid", grid)
+    res = t_eval_cli.main(["--data", "subject100", "--resume", snap,
+                           "--outdir", str(tmp_path / "eval"),
+                           "--device", "cpu"] + flags)
+    for protocol in ("novel_view", "novel_pose"):
+        assert np.isfinite(res[protocol]["psnr"])
+        assert np.isfinite(res[protocol]["ssim"])
