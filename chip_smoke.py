@@ -6,7 +6,7 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels with nvcc and drives six paths of
+It builds the port's CUDA kernels with nvcc and drives eight paths of
 ``sherf_tpu_torch`` at the production configuration (512x512 rays x 48
 samples, bf16, calibrated budgets — the configuration of ``bench.py``),
 with random weights drawn from a seeded ``torch.Generator``:
@@ -54,7 +54,22 @@ with random weights drawn from a seeded ``torch.Generator``:
     survivors, overflow 0, the fine pass's nn_1 and compact_mask calls
     timed, the capsule test and the SR head timed; then the four
     configurations at 24x24 rays in f32 on the card and on the CPU, each
-    >= 45 dB apart.
+    >= 45 dB apart;
+  * the adversarial training path (phase ``gan``): 3 rounds of
+    ``train/gan.py``'s phases (G phase, Dmain, Dreg on rounds 1 and 3) at
+    the train phase's configuration with a DualDiscriminator at 512
+    (channel_base 32768, channel_max 512), adv_weight 0.1, d_reg_interval
+    2: each phase's ms, peak memory, launches; D's inputs f32 in the bf16
+    run; then one round at 24x24 in f32 on the card against the CPU (each
+    phase's gradients from the same weights, relative L2 <= 1e-3); then
+    ``sherf_tpu_torch.cli.train.main --adv_weight 0.1`` for 2 steps on the
+    synthetic_grid rig (stats.jsonl with the D metrics, a snapshot);
+  * the GAN metric suite (phase ``gan_metrics``):
+    ``sherf_tpu_torch.cli.calc_metrics.main`` on the card with ``--resume``
+    on that snapshot, FID / KID / PR / IS / PPL / EQ-T / EQ-R over 8 items
+    at 128x128, with seeded random Inception and LPIPS state dicts written
+    here; InceptionV3's ms per batch of 8 at 299, and its card features
+    against the CPU's on 2 images of 320x320 (rtol / atol 1e-3).
 
 For each path the launch counters are reset just before it and read just
 after, and must be what the path launches (the importance frame: 4 nn_1,
@@ -67,11 +82,14 @@ ray_body_mask_clustered, 3 cluster_prep, 6 compact_mask; shortlist_frame:
 compact_mask; the train step, per step: 3 weighted_accumulate, 2 nn_1, 1
 ray_body_mask, 6 compact_mask; each eval render of the lifecycle: the
 frame's; each loaders train step: the train step's, once an item of its
-batch of 4; each loaders render: the frame's).  It checks that each kernel
+batch of 4; each loaders render: the frame's; each GAN round: the train
+step's in the G phase, the frame's in Dmain, none in Dreg).  It checks
+that each kernel
 agrees with its plain torch version
 on the inputs the paths gave it (every call of the frames, of the first
 train step, of the branches' frames and first importance train step, and
-of the lifecycle's first train step and first eval render:
+of the lifecycle's first train step and first eval render, and of the
+first GAN round's G phase and Dmain:
 indices, masks and compactions equal; squared distances bit-equal; the
 cluster prep's order, rows, centre, centroids and radii bit-equal;
 nn_1_shortlist's tile lists equal; the table gradient within the f32
@@ -1561,6 +1579,374 @@ def branches(torch, np, dev, cfg, out_sh, model, batch, smpl, smpl_d, shims,
     return out, cases, errs
 
 
+# ---- the gan and gan_metrics phases: the adversarial path and its metrics -
+
+GAN_ROUNDS = 3
+GAN_ADV_WEIGHT = 0.1
+GAN_REG_INTERVAL = 2
+# per adversarial round: the G phase is a train step; Dmain re-renders G in
+# train mode without a graph (the frame's kernels, no table gradient); Dreg
+# runs the discriminator alone
+GAN_LAUNCHES = {"gan_g": TRAIN_LAUNCHES, "gan_d": FRAME_LAUNCHES,
+                "gan_dreg": NONE}
+GAN_CLI_STEPS = 2
+GAN_METRICS = ("fid", "kid", "pr", "is", "ppl", "eqt", "eqr")
+GAN_METRIC_ITEMS, GAN_METRIC_SIZE = 8, 128
+
+
+def _phase_grads(cpu, gpu):
+    """Worst relative L2 of ``gpu``'s parameter gradients against
+    ``cpu``'s, and its parameter; fails above 1e-3."""
+    rel = grad_rel_errors(cpu, gpu)
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= 1e-3, f"small GAN round GPU vs CPU: {worst} "
+          f"relative L2 {rel[worst]} > 1e-3")
+    return {"params_compared": len(rel), "worst_param": worst,
+            "worst_rel_l2": rel[worst]}
+
+
+def gan(torch, np, dev, cfg, out_sh, model, batch, smpl, smpl_d, shims,
+        out_dir):
+    """Phase ``gan``: GAN_ROUNDS adversarial rounds (G phase, Dmain, Dreg on
+    rounds 0 and 2) at the train phase's configuration (512x512x48, bf16,
+    budgets calibrated at MARGIN, batch 1) with a DualDiscriminator at 512
+    (channel_base 32768, channel_max 512): each phase timed and counted,
+    every kernel call of the first round held against its plain version;
+    then one round at 24x24 in f32 on the card against the CPU (gradients
+    of each phase from the same weights, relative L2 <= 1e-3); then the
+    train CLI with ``--adv_weight 0.1`` for GAN_CLI_STEPS steps on the
+    synthetic_grid rig.  Returns (numbers, cases, errs, launches by path,
+    the CLI's snapshot)."""
+    import dataclasses
+
+    from sherf_tpu_torch.cli import train as train_cli
+    from sherf_tpu_torch.core.calibrate import calibrate_budgets
+    from sherf_tpu_torch.core.config import RenderConfig, TrainConfig
+    from sherf_tpu_torch.data.synthetic import make_synthetic_batch
+    from sherf_tpu_torch.features.discriminator import DualDiscriminator
+    from sherf_tpu_torch.kernels import _cuda
+    from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+    from sherf_tpu_torch.train import create_train_state
+    from sherf_tpu_torch.train import loop as train_loop
+    from sherf_tpu_torch.train.checkpoint import latest_checkpoint
+    from sherf_tpu_torch.train.gan import (create_d_train_state,
+                                           make_gan_losses,
+                                           make_gan_train_step)
+
+    out = {}
+    tcfg = TrainConfig(batch_size=1, adv_weight=GAN_ADV_WEIGHT,
+                       d_reg_interval=GAN_REG_INTERVAL)
+    train_cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, density_noise=RenderConfig().density_noise))
+
+    # (a) GAN_ROUNDS rounds at full width
+    g = SHERFGenerator(train_cfg, out_sh=out_sh, device=dev)
+    random_init_(g, torch.Generator().manual_seed(0))
+    d = DualDiscriminator(img_resolution=H).to(dev)
+    d_state = create_d_train_state(d, tcfg,
+                                   generator=torch.Generator().manual_seed(1))
+    g_state = create_train_state(g, tcfg)
+    g_step, d_main, d_reg = make_gan_train_step(g, smpl_d, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_gen = torch.Generator(device=dev).manual_seed(2)
+    d_in = []
+    hook = d.register_forward_pre_hook(
+        lambda m, a: d_in.append(tuple(str(t.dtype) for t in a)))
+    g0 = {n: p.detach().clone() for n, p in g.named_parameters()}
+    d0 = {n: p.detach().clone() for n, p in d.named_parameters()}
+    ms = {path: [] for path in GAN_LAUNCHES}
+    counts = {path: [] for path in GAN_LAUNCHES}
+    metrics, first = [], {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed_phase(path, rec, fn, *args):
+        rec.on = not ms[path]            # keep the first round's calls
+        seen = dict(_cuda.LAUNCHES)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        m = fn(*args)
+        torch.cuda.synchronize()
+        ms[path].append((time.perf_counter() - ts) * 1e3)
+        rec.on = False
+        counts[path].append({k: _cuda.LAUNCHES[k] - seen[k] for k in seen})
+        if rec.calls and len(ms[path]) == 1:
+            first[path] = {k: list(v) for k, v in rec.calls.items()}
+            for v in rec.calls.values():
+                v.clear()
+        return m
+
+    with Recorder(shims) as rec:
+        for r in range(GAN_ROUNDS):
+            m = timed_phase("gan_g", rec, g_step, g_state, d_state, batch,
+                            gen)
+            m.update(timed_phase("gan_d", rec, d_main, d_state, g_state,
+                                 batch, d_gen))
+            if r % GAN_REG_INTERVAL == 0:
+                m.update(timed_phase("gan_dreg", rec, d_reg, d_state,
+                                     batch))
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # where each phase's device time goes: one more round, profiled
+        profiles = {}
+        for path, fn, expect in (
+                ("gan_g", lambda: g_step(g_state, d_state, batch, gen),
+                 TRAIN_LAUNCHES),
+                ("gan_d", lambda: d_main(d_state, g_state, batch, d_gen),
+                 FRAME_LAUNCHES),
+                ("gan_dreg", lambda: d_reg(d_state, batch), NONE)):
+            prof = profiled(fn, torch, expect)
+            profiles[path] = {k: prof[k] for k in (
+                "wall_ms_profiled", "device_busy_ms", "device_idle_share",
+                "kernel_launches", "port_kernels_ms", "top_ops")}
+            profiles[path]["top_ops"] = prof["top_ops"][:8]
+    hook.remove()
+    for path, expect in GAN_LAUNCHES.items():
+        check(all(c == expect for c in counts[path]),
+              f"{path} launches {counts[path]}, expected {expect}")
+    for i, m in enumerate(metrics):
+        check(all(np.isfinite(v) for v in m.values()),
+              f"gan round {i + 1}: {m}")
+        check(m["overflow"] == 0, f"gan round {i + 1}: overflow "
+              f"{m['overflow']}")
+    check(len(ms["gan_dreg"]) == len(range(0, GAN_ROUNDS, GAN_REG_INTERVAL))
+          and "r1_penalty" in metrics[0], "gan: Dreg cadence")
+    # D sees f32 for the fake and the real images, as the JAX D (whose
+    # weights follow its input's dtype) does in a bf16 run
+    check(set(d_in) == {("torch.float32", "torch.float32")},
+          f"gan: D input dtypes {sorted(set(d_in))}")
+    check(d_state.step == GAN_ROUNDS + len(ms["gan_dreg"]) + 2,
+          f"gan: D state at step {d_state.step}")
+    params = dict(g.named_parameters())
+    check(all(not torch.equal(d0[n], p) for n, p in d.named_parameters()),
+          "gan: a D parameter did not move")
+    moved = sum(not torch.equal(g0[n], params[n]) for n in g0)
+    check(moved > len(g0) // 2, f"gan: {moved} of {len(g0)} G parameters "
+          f"moved")
+    errs = dict.fromkeys(HELD, 0.0)
+    cases = (held_calls(torch, first.get("gan_g", {}), "gan_g", errs)
+             + held_calls(torch, first.get("gan_d", {}), "gan_d", errs))
+    check(sum(c["path"] == "gan_g" for c in cases)
+          == sum(TRAIN_LAUNCHES.values())
+          and sum(c["path"] == "gan_d" for c in cases)
+          == sum(FRAME_LAUNCHES.values()), "gan: calls held")
+    med = lambda xs: statistics.median(xs[1:]) if len(xs) > 1 else None
+    out["rounds"] = {
+        "rounds": GAN_ROUNDS, "g_ms": ms["gan_g"], "d_main_ms": ms["gan_d"],
+        "d_reg_ms": ms["gan_dreg"], "g_ms_median_after_1": med(ms["gan_g"]),
+        "d_main_ms_median_after_1": med(ms["gan_d"]),
+        "d_reg_ms_after_1": med(ms["gan_dreg"]),
+        "peak_mem_gb": round(peak_gb, 3),
+        "launches_per_phase": {p: c[0] for p, c in counts.items()},
+        "d_params": sum(p.numel() for p in d.parameters()),
+        "d_input_dtypes": sorted(set(d_in)), "metrics": metrics,
+        "profiles": profiles}
+    launches = {p: c[0] for p, c in counts.items()}
+    del g, d, g_state, d_state, g_step, d_main, d_reg, first, rec, g0, d0
+    torch.cuda.empty_cache()
+
+    # (b) one round at 24x24, card against CPU, each phase from the same
+    # weights.  The G phase runs in f32 through g_step.  The D phases run D
+    # in f64 on the same inputs (the CPU's re-render): the two devices'
+    # f32 renders differ by ~1e-8, and a leaky ReLU whose input lies that
+    # close to zero takes the other slope on the other device, which moves
+    # that layer's gradient by ~5e-3: a property of the comparison, not of
+    # either device.
+    t0 = time.perf_counter()
+    small_batch = make_synthetic_batch(smpl, batch_size=1, H=SMALL_HW,
+                                       W=SMALL_HW, seed=1, device="cpu")
+    small_cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                    render=RenderConfig(depth_resolution=16,
+                                                        density_noise=0.0))
+    fit, _ = calibrate_budgets([small_batch], small_cfg, margin=MARGIN,
+                               round_to=128)
+    small_cfg = dataclasses.replace(small_cfg, render=fit)
+    sd = model.state_dict()
+    sd["renderer.decoder.alpha.bias"] = (sd["renderer.decoder.alpha.bias"]
+                                         + DENSITY_BIAS)
+    d_sd = create_d_train_state(DualDiscriminator(img_resolution=SMALL_HW),
+                                tcfg, generator=torch.Generator().manual_seed(1)
+                                ).model.state_dict()
+
+    class D64(torch.nn.Module):
+        """The discriminator in f64, on f64 copies of its inputs."""
+
+        def __init__(self):
+            super().__init__()
+            self.d = DualDiscriminator(img_resolution=SMALL_HW).double()
+            self.d.load_state_dict(d_sd)
+
+        def forward(self, image, image_raw):
+            return self.d(image.double(), image_raw.double())
+
+    small, sides, metrics_g = {}, {}, {}
+    for where, d_, b_, s_ in (("cpu", "cpu", small_batch, smpl),
+                              ("cuda", dev, small_batch.to(dev), smpl_d)):
+        gm = SHERFGenerator(small_cfg, out_sh=out_sh, device=d_)
+        gm.load_state_dict(sd)
+        dm = DualDiscriminator(img_resolution=SMALL_HW).to(d_)
+        dm.load_state_dict(d_sd)
+        g_step, _, d_reg_step = make_gan_train_step(gm, s_, tcfg)
+        m = g_step(create_train_state(gm, tcfg), create_d_train_state(dm, tcfg),
+                   b_, torch.Generator(device=d_).manual_seed(0))
+        metrics_g[where] = {k: float(v) for k, v in m.items()}
+        sides[where] = (gm, D64().to(d_), b_, d_reg_step)
+    check(all(m["overflow"] == 0 for m in metrics_g.values()),
+          f"small GAN round overflow {metrics_g}")
+    small["g"] = _phase_grads(sides["cpu"][0], sides["cuda"][0])
+    with torch.no_grad():            # Dmain's re-render: the CPU's G
+        fake, _ = sides["cpu"][0](small_batch, smpl, noise_mode="none",
+                                  train=True)
+    d_states, metrics_d = {}, {}
+    for where, (gm, d64, b_, d_reg_step) in sides.items():
+        ds = d_states[where] = create_d_train_state(d64, tcfg)
+        real = b_.img * 2.0 - 1.0
+        loss, m = make_gan_losses(d64)[1](
+            {k: v.to(real.device) for k, v in fake.items()}, real, real)
+        loss.backward()
+        metrics_d[where] = {k: float(v) for k, v in m.items()}
+    small["d_main"] = _phase_grads(sides["cpu"][1], sides["cuda"][1])
+    for where, (gm, d64, b_, d_reg_step) in sides.items():
+        d_states[where].apply_gradients()
+        metrics_d[where].update({k: float(v) for k, v in
+                                 d_reg_step(d_states[where], b_).items()})
+    small["d_reg"] = _phase_grads(sides["cpu"][1], sides["cuda"][1])
+    out["small_round_vs_cpu"] = {
+        "seconds": round(time.perf_counter() - t0, 3), "phases": small,
+        "metrics": {w: {**metrics_g[w], **metrics_d[w]} for w in metrics_g}}
+    del sides, d_states
+    torch.cuda.empty_cache()
+
+    # (c) the train CLI with the adversarial phases, GAN_CLI_STEPS steps
+    t0 = time.perf_counter()
+    run_dir = os.path.join(out_dir, "gan_run")
+    orig_loop = train_loop.training_loop
+
+    def few_steps(c, t, *args, **kwargs):
+        t = dataclasses.replace(t, total_kimg=GAN_CLI_STEPS * t.batch_size
+                                / 1000, snapshot_ticks=100)
+        return orig_loop(c, t, *args, **kwargs)
+    train_loop.training_loop = few_steps
+    try:
+        _cuda.reset_launches()
+        train_cli.main(["--outdir", run_dir, "--cfg", "synthetic_grid",
+                        "--batch", "1", "--num_instance", "2",
+                        "--adv_weight", str(GAN_ADV_WEIGHT),
+                        "--d_reg_interval", str(GAN_REG_INTERVAL),
+                        "--calibrate_budgets", "true",
+                        "--calibrate_margin", str(LIFE_MARGIN)])
+        torch.cuda.synchronize()
+        cli_launches = dict(_cuda.LAUNCHES)
+    finally:
+        train_loop.training_loop = orig_loop
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    loss = [x for x in lines if "Loss/loss" in x]
+    keys = ("g_adv", "d_loss", "scores_fake", "scores_real", "r1_penalty",
+            "loss")
+    check(len(loss) == 1 and all(np.isfinite(loss[0].get(f"Loss/{k}", np.nan))
+                                 for k in keys)
+          and loss[0]["Loss/overflow"] == 0, f"gan CLI stats {loss}")
+    snap = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+    check(snap is not None and snap.endswith(f"snapshot-{GAN_CLI_STEPS:06d}.pt"),
+          f"gan CLI snapshot {snap}")
+    out["train_cli"] = {"seconds": round(time.perf_counter() - t0, 3),
+                        "steps": GAN_CLI_STEPS, "launches": cli_launches,
+                        "stats": {k: loss[0][f"Loss/{k}"] for k in keys}}
+    torch.cuda.empty_cache()
+    return out, cases, errs, launches, snap
+
+
+def random_state_dict(torch, template, seed):
+    """A seeded random state dict with ``template``'s keys and shapes:
+    He-scaled convolutions, BN variances in [0.5, 1.5), scales near 1,
+    small biases and linear weights."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in template.items():
+        if k.startswith("scaling_layer.") or k.endswith("num_batches_tracked"):
+            sd[k] = v.clone()
+        elif v.dim() == 4:
+            sd[k] = torch.randn(v.shape, generator=g) * (
+                2.0 / v[0].numel()) ** 0.5
+        elif k.endswith("running_var"):
+            sd[k] = 0.5 + torch.rand(v.shape, generator=g)
+        elif k.endswith("bn.weight"):
+            sd[k] = 1.0 + 0.1 * torch.randn(v.shape, generator=g)
+        elif k.startswith("lins."):
+            sd[k] = torch.rand(v.shape, generator=g) * 0.1
+        else:
+            sd[k] = 0.02 * torch.randn(v.shape, generator=g)
+    return sd
+
+
+def gan_metrics(torch, np, dev, out_dir, snap):
+    """Phase ``gan_metrics``: ``cli.calc_metrics.main`` on the card with
+    ``--resume`` on the GAN CLI run's snapshot, every metric, GAN_METRIC_ITEMS
+    items at GAN_METRIC_SIZE, with seeded random Inception and LPIPS state
+    dicts written here (``SHERF_INCEPTION_WEIGHTS``, ``SHERF_LPIPS_WEIGHTS``);
+    then InceptionV3 timed on a batch at 299 and held, card against CPU, on
+    2 images of 320x320."""
+    from sherf_tpu_torch.cli import calc_metrics
+    from sherf_tpu_torch.eval import metrics as t_metrics
+    from sherf_tpu_torch.features import inception as t_inc
+    from sherf_tpu_torch.kernels import _cuda
+    from sherf_tpu_torch.train import lpips as t_lpips
+
+    inc_sd = random_state_dict(torch, t_inc.InceptionV3().state_dict(), 12)
+    paths = {"SHERF_INCEPTION_WEIGHTS": os.path.join(out_dir, "inception.pt"),
+             "SHERF_LPIPS_WEIGHTS": os.path.join(out_dir, "lpips_vgg.pt")}
+    torch.save(inc_sd, paths["SHERF_INCEPTION_WEIGHTS"])
+    torch.save(random_state_dict(torch, t_lpips.LPIPS().state_dict(), 11),
+               paths["SHERF_LPIPS_WEIGHTS"])
+    before = {k: os.environ.get(k) for k in paths}
+    os.environ.update(paths)
+    t_lpips._TRIED, t_lpips._LPIPS_PARAMS = False, None
+    t0 = time.perf_counter()
+    try:
+        _cuda.reset_launches()
+        res = calc_metrics.main([
+            "--cfg", "synthetic", "--resume", snap, "--metrics", *GAN_METRICS,
+            "--num_items", str(GAN_METRIC_ITEMS), "--size",
+            str(GAN_METRIC_SIZE), "--out", os.path.join(out_dir,
+                                                        "metrics.json")])
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        t_lpips._TRIED, t_lpips._LPIPS_PARAMS = False, None
+        t_metrics._LPIPS.clear()
+    seconds = time.perf_counter() - t0
+    names = ("fid", "kid", "precision", "recall", "is_mean", "is_std", "ppl",
+             "eqt_int_psnr", "eqr90_psnr")
+    check(all(np.isfinite(res[k]) for k in names), f"gan_metrics: {res}")
+    check(res["overflow"] == 0, f"gan_metrics: overflow {res['overflow']}")
+    check(launches["nn_1"] > 0, f"gan_metrics: launches {launches}")
+
+    net = t_inc.make_inception(inc_sd, dev)
+    x = torch.rand(GAN_METRIC_ITEMS, t_inc.INPUT_SIZE, t_inc.INPUT_SIZE, 3,
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        batch_ms = cuda_ms(lambda: net(x), 5, torch)
+    x2 = torch.rand(2, 320, 320, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        fg, lg = net(x2.to(dev))
+        fc, lc = t_inc.make_inception(inc_sd, "cpu")(x2)
+    err = {"pool3_max_abs": max_abs(fg.cpu(), fc),
+           "logits_max_abs": max_abs(lg.cpu(), lc),
+           "pool3_max_abs_ref": float(fc.abs().max())}
+    check(torch.allclose(fg.cpu(), fc, rtol=1e-3, atol=1e-3)
+          and torch.allclose(lg.cpu(), lc, rtol=1e-3, atol=1e-3),
+          f"gan_metrics: Inception card vs CPU {err}")
+    return {"seconds_calc_metrics": round(seconds, 3), "results": res,
+            "launches": launches, "inception_ms_per_batch": batch_ms,
+            "inception_batch": GAN_METRIC_ITEMS,
+            "inception_card_vs_cpu": err}
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_all = time.perf_counter()
@@ -2470,8 +2856,26 @@ def main():
         if row["name"] in load_errs:
             row["max_abs_err"] = max(row["max_abs_err"], load_errs[row["name"]])
     phase("loaders", t0, **load)
+
+    # ---- gan: the adversarial phases; gan_metrics: calc_metrics on its run
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as gan_dir:
+        gan_out, gan_cases, gan_errs, gan_launches, snap = gan(
+            torch, np, dev, cfg, out_sh, model, batch, smpl, smpl_d, shims,
+            gan_dir)
+        for row in rows:
+            row["launches_per_gan_round"] = {
+                p: n.get(row["name"], 0) for p, n in gan_launches.items()}
+            row["launches_by_path"].update(row["launches_per_gan_round"])
+            if row["name"] in gan_errs:
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         gan_errs[row["name"]])
+        phase("gan", t0, **gan_out)
+        t0 = time.perf_counter()
+        phase("gan_metrics", t0, **gan_metrics(torch, np, dev, gan_dir, snap))
+    torch.cuda.empty_cache()
     phase("kernels", time.perf_counter() - kernels_s,
-          cases=cases + branch_cases + life_cases + load_cases)
+          cases=cases + branch_cases + life_cases + load_cases + gan_cases)
     torch.cuda.empty_cache()
 
     # ---- agreement with the CPU path on a small input --------------------

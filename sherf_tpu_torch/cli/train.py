@@ -5,6 +5,8 @@ Examples:
   python -m sherf_tpu_torch.cli.train --outdir runs/syn --cfg synthetic --kimg 1
   python -m sherf_tpu_torch.cli.train --outdir runs/grid --cfg synthetic_grid \\
       --batch 1 --kimg 3 --calibrate_budgets true --calibrate_margin 1.5
+  python -m sherf_tpu_torch.cli.train --outdir runs/gan --cfg synthetic_grid \\
+      --batch 1 --kimg 3 --adv_weight 0.1 --d_reg_interval 16
   (add --device cpu to run on the CPU)
 """
 
@@ -57,7 +59,8 @@ def main(argv=None):
     p.add_argument("--mesh", type=str, default=None,
                    help="device mesh as 'data,rays'; only 1,1 is ported")
     p.add_argument("--adv_weight", type=float, default=0.0,
-                   help="adversarial G-loss weight; only 0 is ported "
+                   help="adversarial G-loss weight; >0 builds the dual "
+                   "discriminator and runs Dmain + lazy-R1 Dreg phases "
                    "(0 in all shipped SHERF configs)")
     p.add_argument("--dlr", type=float, default=2e-3)
     p.add_argument("--gamma", type=float, default=10.0,
@@ -75,10 +78,6 @@ def main(argv=None):
         raise NotImplementedError(
             "the sharded and multi-host training step is not ported "
             "(ROADMAP Queue A item 6); run with --mesh 1,1 in one process")
-    if a.adv_weight > 0:
-        raise NotImplementedError(
-            "the adversarial phases (discriminator, R1) are not ported "
-            "(ROADMAP Queue A item 5); run with --adv_weight 0")
     device = resolve_device(a.device)
 
     cfg = model_config_from_args(a)

@@ -3,10 +3,16 @@
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 # profiler windows taken before one that kept all of its events is given up
-WINDOWS = 3
+WINDOWS = 5
+# seconds the host waits at the start of each profiler step, before the
+# calls: a window that keeps only its last calls' events (2 of 20) was seen
+# three times in a row in one process, as if the collection started late
+SETTLE_S = 0.05
 
 
 def device_work(fn, reps: int = 20) -> dict:
@@ -14,9 +20,9 @@ def device_work(fn, reps: int = 20) -> dict:
     operations (kernels, memsets, copies) by name, each with its count and
     ms (no launch gaps), and their total count.  The profiler's first
     window is a warm-up (it can miss the first call's events) and only the
-    second is read; a window that lost events (none at all, or a count that
-    is not a whole number of calls) is taken again, up to ``WINDOWS``
-    times."""
+    second is read; each step starts after ``SETTLE_S`` of host sleep; a
+    window that lost events (none at all, or a count that is not a whole
+    number of calls) is taken again, up to ``WINDOWS`` times."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
@@ -25,6 +31,7 @@ def device_work(fn, reps: int = 20) -> dict:
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _ in range(2):
+                time.sleep(SETTLE_S)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()

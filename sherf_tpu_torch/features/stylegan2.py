@@ -49,6 +49,35 @@ class EqualDense(nn.Module):
         return bias_act(y, b, dim=-1, act=self.activation)
 
 
+class EqualConv2d(nn.Module):
+    """Equalized-lr conv with optional FIR up/downsampling and bias +
+    activation; weight stored (out, in, k, k) at unit scale, runtime gain
+    1/sqrt(in * k^2).  ``forward(x, gain)`` scales the activation's gain
+    and the clamp by ``gain``.  NCHW."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, bias: bool = True,
+                 activation: str = "linear", up: int = 1, down: int = 1,
+                 conv_clamp: Optional[float] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self.weight_gain = float(1.0 / np.sqrt(in_channels * kernel_size ** 2))
+        self.activation, self.up, self.down = activation, up, down
+        self.padding, self.conv_clamp = kernel_size // 2, conv_clamp
+
+    def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+        x = conv2d_resample(x, (self.weight * self.weight_gain).to(x.dtype),
+                            f=DEFAULT_FILTER, up=self.up, down=self.down,
+                            padding=self.padding,
+                            flip_weight=(self.up == 1))
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        clamp = None if self.conv_clamp is None else self.conv_clamp * gain
+        return bias_act(x, b, act=self.activation, clamp=clamp,
+                        gain=ACTIVATIONS[self.activation]["def_gain"] * gain)
+
+
 def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
                      styles: torch.Tensor, up: int = 1, padding: int = 0,
                      resample_filter: Optional[np.ndarray] = None,

@@ -1,6 +1,10 @@
 """StyleGAN2 resampling primitives in plain torch, NCHW (counterpart of the
-``bias_act`` / ``setup_filter`` / ``upfirdn2d`` / ``conv2d_resample`` subset
-of ``sherf_tpu/kernels/filters.py``).
+``bias_act`` / ``setup_filter`` / ``upfirdn2d`` / ``filter2d`` /
+``upsample2d`` / ``downsample2d`` / ``conv2d_resample`` subset of
+``sherf_tpu/kernels/filters.py``; ``filtered_lrelu`` is not ported).  Their
+convolutions go through ``conv2d``, whose higher-order gradients (R1's)
+are convolutions and convolution-backward calls (cuDNN's dgrad and wgrad
+on the card).
 
 Semantics follow the JAX functions (padding arithmetic, filter flipping,
 gains) so that shared weights reproduce outputs; only the layout differs:
@@ -76,6 +80,77 @@ def _parse_padding(p):
     return tuple(p)
 
 
+class _Conv(torch.autograd.Function):
+    """y = conv2d(x, w) (stride 1, no padding), with the gradients below."""
+
+    @staticmethod
+    def forward(ctx, x, w, groups):
+        ctx.save_for_backward(x, w)
+        ctx.groups = groups
+        return F.conv2d(x, w, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = _ConvInput.apply(gy, w, ctx.groups, x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = _ConvWeight.apply(gy, x, ctx.groups, w.shape)
+        return gx, gw, None
+
+
+class _ConvInput(torch.autograd.Function):
+    """gx = the input gradient of conv2d(., w) at gy."""
+
+    @staticmethod
+    def forward(ctx, gy, w, groups, x_shape):
+        ctx.save_for_backward(gy, w)
+        ctx.groups = groups
+        return torch.nn.grad.conv2d_input(x_shape, w, gy, groups=groups)
+
+    @staticmethod
+    def backward(ctx, ggx):
+        gy, w = ctx.saved_tensors
+        g_gy = g_w = None
+        if ctx.needs_input_grad[0]:
+            g_gy = _Conv.apply(ggx, w, ctx.groups)
+        if ctx.needs_input_grad[1]:
+            g_w = _ConvWeight.apply(gy, ggx, ctx.groups, w.shape)
+        return g_gy, g_w, None, None
+
+
+class _ConvWeight(torch.autograd.Function):
+    """gw = the weight gradient of conv2d(x, .) at gy."""
+
+    @staticmethod
+    def forward(ctx, gy, x, groups, w_shape):
+        ctx.save_for_backward(gy, x)
+        ctx.groups = groups
+        return torch.nn.grad.conv2d_weight(x, w_shape, gy, groups=groups)
+
+    @staticmethod
+    def backward(ctx, ggw):
+        gy, x = ctx.saved_tensors
+        g_gy = g_x = None
+        if ctx.needs_input_grad[0]:
+            g_gy = _Conv.apply(x, ggw, ctx.groups)
+        if ctx.needs_input_grad[1]:
+            g_x = _ConvInput.apply(gy, ggw, ctx.groups, x.shape)
+        return g_gy, g_x, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d(x, w, groups=groups)`` (stride 1, no padding) whose
+    gradients of every order are convolutions and the convolution
+    backward's input and weight gradients (the reference's
+    conv2d_gradfix).  torch's own double backward of a conv takes the
+    weight term as a forward conv whose kernel is the whole gradient
+    image, even for a weight that needs no gradient: R1 at 512x512 spent
+    seconds in it."""
+    return _Conv.apply(x, w, groups)
+
+
 def upfirdn2d(x: torch.Tensor, f: Optional[np.ndarray], up=1, down=1,
               padding=0, flip_filter: bool = False,
               gain: float = 1.0) -> torch.Tensor:
@@ -99,13 +174,25 @@ def upfirdn2d(x: torch.Tensor, f: Optional[np.ndarray], up=1, down=1,
             ker = ker[::-1, ::-1]
         k = torch.as_tensor(np.ascontiguousarray(ker), dtype=x.dtype,
                             device=x.device) * torch.tensor(gain, dtype=x.dtype)
-        x = F.conv2d(x, k[None, None].expand(C, 1, *k.shape).contiguous(),
-                     groups=C)
+        # the same filter on every channel: one single-channel conv over
+        # N * C images (torch's double backward of a depthwise conv runs
+        # one conv per group), through ``conv2d`` (see there)
+        h, w = x.shape[2:]
+        x = conv2d(x.reshape(N * C, 1, h, w), k[None, None])
+        x = x.reshape(N, C, *x.shape[2:])
     elif gain != 1.0:
         x = x * torch.tensor(gain, dtype=x.dtype)
     if downy > 1 or downx > 1:
         x = x[:, :, ::downy, ::downx]
     return x
+
+
+def filter2d(x, f, padding=0, flip_filter=False, gain=1.0):
+    """Same-size FIR filtering (NCHW)."""
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fh, fw = f.shape
+    p = [px0 + fw // 2, px1 + (fw - 1) // 2, py0 + fh // 2, py1 + (fh - 1) // 2]
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
 
 
 def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1.0):
@@ -117,6 +204,17 @@ def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1.0):
          py0 + (fh + upy - 1) // 2, py1 + (fh - upy) // 2]
     return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
                      gain=gain * upx * upy)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1.0):
+    """FIR downsampling (NCHW)."""
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fh, fw = f.shape
+    p = [px0 + (fw - downx + 1) // 2, px1 + (fw - downx) // 2,
+         py0 + (fh - downy + 1) // 2, py1 + (fh - downy) // 2]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter,
+                     gain=gain)
 
 
 def conv2d_resample(x: torch.Tensor, w: torch.Tensor,
@@ -143,7 +241,7 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor,
                   padding=[px0, px1, py0, py1], gain=up ** 2)
     if not flip_weight and (kh > 1 or kw > 1):
         w = w.flip([2, 3])
-    x = F.conv2d(x, w.to(x.dtype), groups=groups)
+    x = conv2d(x, w.to(x.dtype), groups=groups)
     if down > 1:
         x = upfirdn2d(x, f, down=down)
     return x

@@ -5,9 +5,16 @@ caller's ``batch_source``), size the canonical volume over every served
 subject, calibrate the budgets when asked, build the model and the train
 state, run the steps, accumulate metrics on the device and flush their
 means every report interval, snapshot with a sample grid rendered by the
-EMA weights.  Unlike the JAX loop, the metrics of a final partial report
+EMA weights.  With ``tcfg.adv_weight > 0`` each step runs the adversarial
+phases (``train/gan.py``): Gmain, then Dmain, then Dreg on the steps that
+are a multiple of ``d_reg_interval`` (step 0 included), with a
+``DualDiscriminator`` at the batches' image size, drawn from ``tcfg.seed +
+1``; snapshots hold G only, as in the JAX loop, so a resumed GAN run starts
+a fresh D.  Unlike the JAX loop, the metrics of a final partial report
 interval are flushed before the last snapshot, so no step's metrics are
-lost.
+lost, and each metric is averaged over the steps that produced it (the JAX
+loop keeps only the metrics of every step of an interval, which drops
+``r1_penalty`` from any interval longer than one step).
 """
 
 from __future__ import annotations
@@ -126,6 +133,7 @@ def _train(cfg, tcfg, smpl, batch_source, subject_bodies, calibrate, device):
         print(f"calibrated budgets (margin {calibrate}): {worst}")
         cfg = dataclasses.replace(cfg, render=fitted)
         del cal
+    img_res = example.img.shape[1]      # the D's size (square images only)
     del example
     model = SHERFGenerator(cfg, out_sh=out_sh, device=device)
     random_init_(model, torch.Generator().manual_seed(tcfg.seed))
@@ -136,8 +144,23 @@ def _train(cfg, tcfg, smpl, batch_source, subject_bodies, calibrate, device):
 
     # LPIPS joins the loss when weights exist (SHERF_LPIPS_WEIGHTS), as in
     # the JAX loop; without them its term is 0
-    step_fn = make_train_step(model, smpl, tcfg,
-                              lpips_fn=make_lpips(device))
+    lpips_fn = make_lpips(device)
+    gan = tcfg.adv_weight > 0
+    if gan:
+        from sherf_tpu_torch.features.discriminator import DualDiscriminator
+        from sherf_tpu_torch.train.gan import (create_d_train_state,
+                                               make_gan_train_step)
+
+        d_state = create_d_train_state(
+            DualDiscriminator(img_resolution=img_res).to(device), tcfg,
+            generator=torch.Generator().manual_seed(tcfg.seed + 1))
+        step_fn, d_main_step, d_reg_step = make_gan_train_step(
+            model, smpl, tcfg, lpips_fn=lpips_fn)
+        # the D phase's re-render draws its density noise from a generator
+        # of its own (the JAX loop folds 2 into the step's key)
+        d_gen = torch.Generator(device=device).manual_seed(tcfg.seed + 2)
+    else:
+        step_fn = make_train_step(model, smpl, tcfg, lpips_fn=lpips_fn)
     stats = StatsCollector(run_dir)
     total_steps = int(tcfg.total_kimg * 1000) // tcfg.batch_size
     report_every = max(tcfg.report_imgs // tcfg.batch_size, 1)
@@ -145,14 +168,15 @@ def _train(cfg, tcfg, smpl, batch_source, subject_bodies, calibrate, device):
                          // tcfg.batch_size, 1)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
     t_tick = time.time()
-    acc, acc_count = None, 0    # device-side metric sums since the last flush
+    # device-side metric sums since the last flush, and each one's count
+    acc, acc_n = {}, {}
 
     def flush_metrics(step):
-        nonlocal acc, acc_count
-        if acc_count:
-            stats.report({k: v / acc_count for k, v in acc.items()},
+        nonlocal acc, acc_n
+        if acc:
+            stats.report({k: v / acc_n[k] for k, v in acc.items()},
                          prefix="Loss/")
-        acc, acc_count = None, 0
+        acc, acc_n = {}, {}
         stats.report_resources()
         return stats.flush(step)
 
@@ -160,10 +184,16 @@ def _train(cfg, tcfg, smpl, batch_source, subject_bodies, calibrate, device):
         t0 = time.time()
         batch = batch_source()
         t1 = time.time()
-        metrics = step_fn(state, batch, gen)
-        acc = (dict(metrics) if acc is None
-               else {k: acc[k] + metrics[k] for k in acc})
-        acc_count += 1
+        if gan:
+            metrics = step_fn(state, d_state, batch, gen)
+            metrics.update(d_main_step(d_state, state, batch, d_gen))
+            if step % tcfg.d_reg_interval == 0:     # lazy R1
+                metrics.update(d_reg_step(d_state, batch))
+        else:
+            metrics = step_fn(state, batch, gen)
+        for k, v in metrics.items():
+            acc[k] = acc[k] + v if k in acc else v
+            acc_n[k] = acc_n.get(k, 0) + 1
         stats.report({"data_fetch": t1 - t0, "step_dispatch": time.time() - t1},
                      prefix="Timing/")
         last = step + 1 == total_steps
@@ -177,7 +207,7 @@ def _train(cfg, tcfg, smpl, batch_source, subject_bodies, calibrate, device):
                             for k, v in means.items() if k.startswith("Loss/"))
             print(f"kimg {imgs / 1000:.2f} sec/kimg {sec_kimg:.1f} {line}")
         if (step + 1) % snapshot_every == 0 or last:
-            if last and acc_count:
+            if last and acc:
                 flush_metrics(step + 1)       # the final partial interval
             t_snap = time.time()
             path = save_checkpoint(os.path.join(run_dir, "checkpoints"), state)

@@ -24,6 +24,7 @@ from sherf_tpu.cli import eval as j_eval_cli
 from sherf_tpu.cli import train as j_train_cli
 import sherf_tpu_torch.eval.test_loop as t_test_loop
 import sherf_tpu_torch.train.loop as t_loop
+from sherf_tpu_torch.cli import calc_metrics as t_calc_cli
 from sherf_tpu_torch.cli import eval as t_eval_cli
 from sherf_tpu_torch.cli import train as t_train_cli
 
@@ -69,7 +70,7 @@ def test_train_cli_passes_the_configs_jax_does(monkeypatch, tmp_path, argv):
     assert t_args[3].v_template.device.type == "cpu"
 
 
-@pytest.mark.parametrize("extra", [["--mesh", "2,1"], ["--adv_weight", "0.5"],
+@pytest.mark.parametrize("extra", [["--mesh", "2,1"], ["--num_processes", "2"],
                                    ["--coordinator", "localhost:1234"]])
 def test_train_cli_rejects_what_is_not_ported(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
@@ -133,7 +134,8 @@ def test_eval_cli_rejects_a_loader_that_is_not_ported():
     (t_train_cli.main, ["--outdir", "unused"]),
     (t_eval_cli.main, ["--cfg", "synthetic_grid", "--data", "subject100",
                        "--resume", "snap"]),
-], ids=["train", "eval"])
+    (t_calc_cli.main, ["--cfg", "synthetic"]),
+], ids=["train", "eval", "calc_metrics"])
 def test_clis_default_to_cuda_and_never_fall_back(monkeypatch, main, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):

@@ -15,7 +15,11 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "sherf_tpu", "cv2",
 EXPECTED = ("sherf_tpu_torch.cli.eval", "sherf_tpu_torch.cli.train",
             "sherf_tpu_torch.data.sampler", "sherf_tpu_torch.eval.test_loop",
             "sherf_tpu_torch.eval.png", "sherf_tpu_torch.geometry.cameras",
-            "sherf_tpu_torch.train.loop", "sherf_tpu_torch.kernels.knn")
+            "sherf_tpu_torch.train.loop", "sherf_tpu_torch.kernels.knn",
+            "sherf_tpu_torch.cli.calc_metrics", "sherf_tpu_torch.train.gan",
+            "sherf_tpu_torch.features.discriminator",
+            "sherf_tpu_torch.features.inception",
+            "sherf_tpu_torch.eval.gan_metrics")
 
 CHILD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
