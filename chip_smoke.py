@@ -6,7 +6,7 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels with nvcc and drives eight paths of
+It builds the port's CUDA kernels with nvcc and drives nine paths of
 ``sherf_tpu_torch`` at the production configuration (512x512 rays x 48
 samples, bf16, calibrated budgets — the configuration of ``bench.py``),
 with random weights drawn from a seeded ``torch.Generator``:
@@ -55,6 +55,21 @@ with random weights drawn from a seeded ``torch.Generator``:
     timed, the capsule test and the SR head timed; then the four
     configurations at 24x24 rays in f32 on the card and on the CPU, each
     >= 45 dB apart;
+  * the render-side entry points (phase ``render_clis``) at the CLIs'
+    model (default widths, f32, point budget 0.25 uncalibrated):
+    ``gen_videos`` (4 orbit frames at 512x512x48, an animated GIF),
+    ``gen_samples --shapes`` (a frame, then ``query_canonical`` on 128^3
+    canonical points in 32 chunks of 65,536, the .mrc volume and the
+    host's marching tetrahedra), ``render_demo`` at 512, ``debug_project``
+    on the loaders' HuMMan tree, and the visualizer served on an ephemeral
+    localhost port (rgb, depth, cross-section, the layer list and a layer
+    heatmap at 512, from a reference pickle at the production widths
+    written here): frame, chunk and render ms, peak memory, launches per
+    frame (2 nn_1, 4 compact_mask) and per chunk (1 nn_1, 3
+    compact_mask), overflow 0, every file read back with the port's own
+    readers; one orbit frame's and one chunk's kernel calls held against
+    their plain versions; ``query_canonical`` card against CPU on 4,096
+    points at a small configuration (within 1e-4 relative);
   * the adversarial training path (phase ``gan``): 3 rounds of
     ``train/gan.py``'s phases (G phase, Dmain, Dreg on rounds 1 and 3) at
     the train phase's configuration with a DualDiscriminator at 512
@@ -1235,6 +1250,384 @@ def loaders(torch, np, dev, out_dir, shims):
         t_lpips._TRIED, t_lpips._LPIPS_PARAMS = False, None
         t_metrics._LPIPS.clear()
     return out, cases, errs
+
+
+# ---- the render_clis phase: the render-side entry points at full width ----
+
+RC_SIZE = 512
+RC_DEPTH = 48
+RC_FRAMES = 4
+RC_SHAPE_RES = 128
+RC_CHUNK = 65536
+# launches per orbit frame at batch 1 with the CLIs' uncalibrated budget
+# (point_capacity_frac 0.25, no ray budget: no ray prune): the point and
+# canonical KNNs, the point compaction and the 3 sparse-conv downsamples;
+# per query_canonical chunk: the canonical KNN and the 3 downsamples
+ORBIT_LAUNCHES = {**NONE, "nn_1": 2, "compact_mask": 4}
+CHUNK_LAUNCHES = {**NONE, "nn_1": 1, "compact_mask": 3}
+# the visualizer's render types, each one frame through the HTTP app
+VIZ_RENDERS = ("rgb", "depth", "crosssection")
+
+
+def reference_state_dict(np, seed, backbone_resolution=256,
+                         channel_base=32768, channel_max=512):
+    """A reference (PyTorch SHERF) TriPlaneGenerator ``state_dict`` of random
+    numpy weights at the given backbone widths (the key naming of
+    ``compat/legacy_import``; ``tests/test_torch_render_clis.py`` builds the
+    same); the decoder's density bias raised by DENSITY_BIAS, so that the
+    frames are not empty."""
+    r = np.random.RandomState(seed)
+    sd = {}
+
+    def add(k, *shape):
+        sd[k] = np.asarray(r.standard_normal(shape) * 0.05, np.float32)
+
+    def bn(k, c):
+        add(k + ".weight", c)
+        add(k + ".bias", c)
+        add(k + ".running_mean", c)
+        sd[k + ".running_var"] = np.ones(c, np.float32)
+
+    for pre in ("encoder_2d.backbone.", "encoder_2d_feature.backbone."):
+        add(pre + "conv1.weight", 64, 3, 7, 7)
+        bn(pre + "bn1", 64)
+        chans = [64, 128, 256, 512]
+        for i in range(1, 5):
+            for b in range(2):
+                cout = chans[i - 1]
+                c_in = chans[max(i - 2, 0)] if b == 0 else cout
+                blk = f"{pre}layer{i}.{b}"
+                add(blk + ".conv1.weight", cout, c_in, 3, 3)
+                add(blk + ".conv2.weight", cout, cout, 3, 3)
+                bn(blk + ".bn1", cout)
+                bn(blk + ".bn2", cout)
+                if b == 0 and i > 1:
+                    add(blk + ".downsample.0.weight", cout, c_in, 1, 1)
+                    bn(blk + ".downsample.1", cout)
+    add("conv1d_projection.weight", 32, 96, 1)
+    add("conv1d_projection.bias", 32)
+    for i in range(2):
+        add(f"backbone.mapping.fc{i}.weight", 512, 512)
+        add(f"backbone.mapping.fc{i}.bias", 512)
+    add("backbone.mapping.w_avg", 512)
+    res_list = [2 ** i for i in range(2, int(math.log2(backbone_resolution)) + 1)]
+    chans = {res: min(channel_base // res, channel_max) for res in res_list}
+
+    def synth(k, cin, cout, kernel, res=None):
+        add(k + ".weight", cout, cin, kernel, kernel)
+        add(k + ".bias", cout)
+        add(k + ".affine.weight", cin, 512)
+        add(k + ".affine.bias", cin)
+        if res:
+            add(k + ".noise_strength")
+            add(k + ".noise_const", res, res)
+
+    for res in res_list:
+        c, b = chans[res], f"backbone.synthesis.b{res}"
+        if res == 4:
+            add(b + ".const", c, 4, 4)
+        else:
+            synth(b + ".conv0", chans[res // 2], c, 3, res)
+        synth(b + ".conv1", c, c, 3, res)
+        synth(b + ".torgb", c, 96, 1)
+    add("renderer.conv1d_projection.weight", 96, 192, 1)
+    add("renderer.conv1d_projection.bias", 96)
+    add("renderer.conv1d_reprojection.weight", 32, 96, 1)
+    add("renderer.conv1d_reprojection.bias", 32)
+    t = "renderer.transformer.layers.0"
+    for k, shape in ((".0.fn.norm.weight", (32,)), (".0.fn.norm.bias", (32,)),
+                     (".0.fn.fn.to_qkv.weight", (144, 32)),
+                     (".0.fn.fn.to_out.0.weight", (32, 48)),
+                     (".0.fn.fn.to_out.0.bias", (32,)),
+                     (".1.fn.norm.weight", (32,)), (".1.fn.norm.bias", (32,)),
+                     (".1.fn.fn.net.0.weight", (32, 32)),
+                     (".1.fn.fn.net.0.bias", (32,)),
+                     (".1.fn.fn.net.3.weight", (32, 32)),
+                     (".1.fn.fn.net.3.bias", (32,))):
+        add(t + k, *shape)
+    for i, din in enumerate([71] + [128] * 4 + [199] + [128] * 2):
+        add(f"decoder.pts_linears.{i}.weight", 128, din)
+        add(f"decoder.pts_linears.{i}.bias", 128)
+    for k, o, i in (("alpha", 1, 128), ("feature", 128, 128),
+                    ("views", 64, 187), ("rgb", 3, 64)):
+        add(f"decoder.{k}_linear.weight", o, i)
+        add(f"decoder.{k}_linear.bias", o)
+    sd["decoder.alpha_linear.bias"] += DENSITY_BIAS
+    for name, cin, cout, n in (("conv0", 32, 32, 2), ("down0", 32, 32, 1),
+                               ("conv1", 32, 32, 2), ("down1", 32, 64, 1),
+                               ("conv2", 64, 64, 3), ("down2", 64, 96, 1),
+                               ("conv3", 96, 96, 3)):
+        for i in range(n):
+            add(f"renderer.encoder_3d.{name}.{3 * i}.weight", cout, 3, 3, 3,
+                cin if i == 0 else cout)
+            bn(f"renderer.encoder_3d.{name}.{3 * i + 1}", cout)
+    return sd
+
+
+def write_reference_pickle(torch, np, path, sd):
+    """``sd`` pickled as the reference's networks dict {'G_ema': module}."""
+    import pickle
+    root = torch.nn.Module()
+    for key, arr in sd.items():
+        *mods, leaf = key.split(".")
+        node = root
+        for m in mods:
+            if not hasattr(node, m):
+                node.add_module(m, torch.nn.Module())
+            node = getattr(node, m)
+        node.register_buffer(leaf, torch.from_numpy(arr))
+    with open(path, "wb") as f:
+        pickle.dump({"G_ema": root}, f)
+
+
+def render_clis(torch, np, dev, out_dir, humman_root, shims):
+    """Phase ``render_clis``: the render-side entry points on the card at the
+    production model (``cli/common.render_cli_config``: default widths, f32,
+    point budget 0.25 uncalibrated): ``gen_videos`` (RC_FRAMES orbit frames
+    at RC_SIZE x RC_DEPTH), ``gen_samples --shapes`` (a frame and the
+    canonical density on RC_SHAPE_RES^3 points in RC_CHUNK chunks, then the
+    host's marching tetrahedra), ``render_demo``, ``debug_project`` on the
+    loaders phase's HuMMan tree, and the visualizer served on an ephemeral
+    localhost port with a reference pickle at the production widths.  One
+    orbit frame's and one chunk's kernel calls are held against their
+    plain versions; query_canonical on the card against the CPU at a small
+    configuration."""
+    import dataclasses
+    import json as _json
+    import urllib.request
+    from sherf_tpu_torch.cli import (debug_project, gen_samples, gen_videos,
+                                     render_demo)
+    from sherf_tpu_torch.cli.common import build_model, render_cli_config
+    from sherf_tpu_torch.data.png_read import decode_png
+    from sherf_tpu_torch.data.synthetic import make_synthetic_batch
+    from sherf_tpu_torch.geometry.shape import (marching_tetrahedra, read_mrc,
+                                                read_ply)
+    from sherf_tpu_torch.kernels import _cuda, knn
+    from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+    from sherf_tpu_torch.smpl import synthetic_smpl
+    from sherf_tpu_torch.viz.server import VisualizerApp, serve
+
+    out, cases, errs = {}, [], dict.fromkeys(HELD, 0.0)
+    launches = {}
+
+    def zero(overflows):
+        return all(v == 0 for ov in overflows for v in ov.values())
+
+    # ---- gen_videos: the orbit, one frame's kernel calls held ------------
+    timers = [(SHERFGenerator, "forward", "frame"),
+              (SHERFGenerator, "query_canonical", "chunk")]
+    gif = os.path.join(out_dir, "orbit.gif")
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(shims) as rec, Timed(torch, timers) as tm:
+        _cuda.reset_launches()
+        res = gen_videos.main(["--out", gif, "--frames", str(RC_FRAMES),
+                               "--size", str(RC_SIZE), "--depth",
+                               str(RC_DEPTH), "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches["orbit"] = dict(_cuda.LAUNCHES)
+    check(zero(res["overflow"]), f"gen_videos overflow {res['overflow']}")
+    check(all(launches["orbit"][k] == RC_FRAMES * v
+              for k, v in ORBIT_LAUNCHES.items()),
+          f"gen_videos launches {launches['orbit']}, expected "
+          f"{RC_FRAMES} x {ORBIT_LAUNCHES}")
+    frames = res["frames"]
+    check(len(frames) == RC_FRAMES and all(
+        f.shape == (RC_SIZE, RC_SIZE, 3) for f in frames), "gen_videos frames")
+    check(all(f.std() > 0 for f in frames), "gen_videos: a flat frame")
+    # the GIF: its header, a graphic control block a frame, its trailer
+    data = open(gif, "rb").read()
+    check(data[:6] == b"GIF89a" and data[-1:] == b"\x3b"
+          and data.count(b"\x21\xf9\x04") == RC_FRAMES, "gen_videos: GIF")
+    first = {k: rec.calls[k][:n] for k, n in ORBIT_LAUNCHES.items() if n}
+    q0, v0 = first["nn_1"][0]
+    survivors = int(first["compact_mask"][0][0].sum())
+    nn1_orbit_ms = cuda_ms(lambda: knn.nn_1_cuda(q0, v0), 5, torch)
+    cases += held_calls(torch, first, "orbit_frame", errs)
+    out["gen_videos"] = {
+        "frame_ms": [round(x, 3) for x in tm.ms["frame"]],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_frame": {k: v // RC_FRAMES for k, v in
+                               launches["orbit"].items()},
+        "overflow": res["overflow"], "gif_bytes": len(data),
+        # the bound counts the queries the data needs (the compaction's
+        # survivors; the rest of the budget is padding), as the kernel
+        # table does for the importance frame's fine pass
+        "nn_1_point_call": {"n": q0.shape[0], "v": v0.shape[0],
+                            "needed": survivors, "ms": nn1_orbit_ms,
+                            "bound_ms": survivors * v0.shape[0]
+                            * NN1_OPS_PER_PAIR / PEAK_F32_FLOPS * 1e3,
+                            "bound_all_queries_ms": q0.shape[0] * v0.shape[0]
+                            * NN1_OPS_PER_PAIR / PEAK_F32_FLOPS * 1e3},
+        "compact_mask_point_call": {
+            "n": first["compact_mask"][0][0].shape[0],
+            "cap": first["compact_mask"][0][1], "survivors": survivors}}
+    del rec, first, q0, v0
+    torch.cuda.empty_cache()
+
+    # ---- gen_samples --shapes: one chunk's kernel calls held -------------
+    sdir = os.path.join(out_dir, "samples")
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(shims) as rec, Timed(torch, timers) as tm:
+        _cuda.reset_launches()
+        res = gen_samples.main(["--outdir", sdir, "--seeds", "0", "--size",
+                                str(RC_SIZE), "--depth", str(RC_DEPTH),
+                                "--shapes", "--shape_res", str(RC_SHAPE_RES),
+                                "--device", "cuda"])[0]
+        torch.cuda.synchronize()
+        launches["samples"] = dict(_cuda.LAUNCHES)
+    n_chunks = -(-RC_SHAPE_RES ** 3 // RC_CHUNK)
+    check(len(res["chunk_overflow"]) == n_chunks, "gen_samples chunks")
+    check(zero([res["overflow"]] + res["chunk_overflow"]),
+          f"gen_samples overflow {res['overflow']} {res['chunk_overflow']}")
+    check(all(launches["samples"][k] == ORBIT_LAUNCHES[k]
+              + n_chunks * CHUNK_LAUNCHES[k] for k in NONE),
+          f"gen_samples launches {launches['samples']}")
+    chunk = {k: rec.calls[k][ORBIT_LAUNCHES[k]:ORBIT_LAUNCHES[k] + n]
+             for k, n in CHUNK_LAUNCHES.items() if n}
+    qc, vc = chunk["nn_1"][0]
+    check(qc.shape[0] == RC_CHUNK, f"chunk nn_1 queries {qc.shape}")
+    nn1_chunk_ms = cuda_ms(lambda: knn.nn_1_cuda(qc, vc), 20, torch)
+    cases += held_calls(torch, chunk, "query_chunk", errs)
+    del rec, chunk
+    png = decode_png(open(os.path.join(sdir, "seed0000.png"), "rb").read())
+    check(png.shape == (RC_SIZE, RC_SIZE, 3), f"gen_samples png {png.shape}")
+    sigma = read_mrc(os.path.join(sdir, "seed0000.mrc"))
+    check(sigma.shape == (RC_SHAPE_RES,) * 3 and np.isfinite(sigma).all(),
+          "gen_samples: density volume")
+    verts, faces = read_ply(os.path.join(sdir, "seed0000.ply"))
+    # the CLI meshes at its default level; the host's marching tetrahedra
+    # timed again at a level the field crosses (its median)
+    level = float(np.median(sigma))
+    ts = time.perf_counter()
+    mv, mf = marching_tetrahedra(sigma, level=level)
+    mt_s = time.perf_counter() - ts
+    check(len(mf) > 0 and np.isfinite(mv).all(), "marching tetrahedra")
+    out["gen_samples"] = {
+        "frame_ms": round(tm.ms["frame"][0], 3),
+        "chunk_ms": [round(x, 3) for x in tm.ms["chunk"]],
+        "chunk_ms_median": statistics.median(tm.ms["chunk"]),
+        "chunks": n_chunks, "grid_s": round(res["grid_s"], 3),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches["samples"],
+        "launches_per_chunk": {k: (launches["samples"][k] - ORBIT_LAUNCHES[k])
+                               // n_chunks for k in NONE},
+        "cli_mesh_s": round(res["mesh_s"], 3), "cli_mesh_faces": len(faces),
+        "cli_mesh_level": 10.0, "sigma_range": [float(sigma.min()),
+                                                float(sigma.max())],
+        "marching_tetrahedra_s": round(mt_s, 3), "median_level": level,
+        "median_level_faces": len(mf), "median_level_verts": len(mv),
+        "nn_1_chunk_call": {"n": qc.shape[0], "v": vc.shape[0],
+                            "ms": nn1_chunk_ms,
+                            "bound_ms": qc.shape[0] * vc.shape[0]
+                            * NN1_OPS_PER_PAIR / PEAK_F32_FLOPS * 1e3}}
+    del qc, vc
+    torch.cuda.empty_cache()
+
+    # ---- render_demo and debug_project ------------------------------------
+    # at the production depth, then at the CLI's default (24 samples:
+    # recorded, not checked; the uncalibrated prune stride's step margin)
+    demo = os.path.join(out_dir, "demo.png")
+    with Timed(torch, timers) as tm:
+        res = render_demo.main(["--out", demo, "--size", str(RC_SIZE),
+                                "--depth", str(RC_DEPTH), "--device", "cuda"])
+    check(zero([res["overflow"]]), f"render_demo overflow {res['overflow']}")
+    panel = decode_png(open(demo, "rb").read())
+    check(panel.shape == (RC_SIZE, 3 * RC_SIZE, 3)
+          and np.array_equal(panel, res["panel"]), "render_demo png")
+    default = render_demo.main(["--out", demo, "--size", str(RC_SIZE),
+                                "--device", "cuda"])
+    out["render_demo"] = {"frame_ms": round(tm.ms["frame"][0], 3),
+                          "depth": RC_DEPTH, "overflow": res["overflow"],
+                          "default_depth_overflow": default["overflow"]}
+    subject = os.path.join(humman_root, "subject_2")
+    proj = os.path.join(out_dir, "proj.png")
+    ts = time.perf_counter()
+    res = debug_project.main(["--cfg", "humman", "--data", subject,
+                              "--out", proj, "--device", "cuda"])
+    img = decode_png(open(proj, "rb").read())
+    check(np.array_equal(img, res["image"]) and res["in_frame"] > 1000
+          and (img == [255, 0, 0]).all(-1).sum() > 100,
+          f"debug_project: {res['in_frame']} vertices in frame")
+    out["debug_project"] = {"seconds": round(time.perf_counter() - ts, 3),
+                            "image": list(img.shape),
+                            "in_frame": res["in_frame"]}
+
+    # ---- the visualizer over HTTP, a reference pickle at full width -------
+    pkl = os.path.join(out_dir, "reference.pkl")
+    write_reference_pickle(torch, np, pkl, reference_state_dict(np, 21))
+    app = VisualizerApp(ckpt=pkl, resolution=RC_SIZE,
+                        depth_resolution=RC_DEPTH, device=dev)
+    app.capture.out_dir = os.path.join(out_dir, "captures")
+    server = serve(app, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    viz = {}
+    try:
+        def get(path):
+            return urllib.request.urlopen(base + path, timeout=300).read()
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, method="POST",
+                                         data=_json.dumps(body).encode())
+            return urllib.request.urlopen(req, timeout=300).read()
+
+        check(b"sherf_tpu_torch visualizer" in get("/"), "visualizer page")
+        for rt in VIZ_RENDERS + ("layers",):
+            post("/api/update", {"render_type": "rgb" if rt == "layers" else rt,
+                                 "yaw": 2.5, "list_layers": rt == "layers"})
+            frame = decode_png(get("/api/frame.png"))
+            st = _json.loads(get("/api/state"))
+            check(st["error"] is None, f"visualizer {rt}: {st['error']}")
+            check(st["overflow"] and not any(st["overflow"].values()),
+                  f"visualizer {rt}: overflow {st['overflow']}")
+            check(frame.shape == (RC_SIZE, RC_SIZE, 3) and frame.std() > 0,
+                  f"visualizer {rt}: frame {frame.shape}")
+            viz[rt] = {"ms": st["perf"]["last_render_time"] * 1e3}
+        names = [x["name"] for x in st["layers"]["layers"]]
+        check(len(names) > 100, f"visualizer: {len(names)} layers")
+        layer = "backbone.synthesis.b256.torgb"
+        post("/api/update", {"list_layers": False, "layer_name": layer})
+        heat = decode_png(get("/api/frame.png"))
+        st = _json.loads(get("/api/state"))
+        check(st["error"] is None and heat.shape == (256, 256, 3),
+              f"visualizer layer {layer}: {st['error']} {heat.shape}")
+        viz["layer"] = {"name": layer, "ms": st["perf"]["last_render_time"]
+                        * 1e3, "layers_listed": len(names)}
+        cap = _json.loads(post("/api/capture", {}))
+        check(os.path.exists(cap["path"]), "visualizer capture")
+    finally:
+        server.shutdown()
+        server.server_close()
+    out["visualizer"] = viz
+    del app
+    torch.cuda.empty_cache()
+
+    # ---- query_canonical, card against CPU, small configuration -----------
+    smpl = synthetic_smpl(0, device="cpu")
+    cfg = dataclasses.replace(render_cli_config(16), backbone_resolution=64,
+                              channel_base=1024, channel_max=32,
+                              voxel_size=0.02)
+    small, _, cfg = build_model(cfg, smpl, device="cpu")
+    random_init_(small, torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        small.renderer.decoder.alpha.bias += DENSITY_BIAS
+    b = make_synthetic_batch(smpl, batch_size=1, H=24, W=24, seed=1,
+                             device="cpu")
+    lo, hi = b.t_bounds[0, 0], b.t_bounds[0, 1]
+    g = torch.linspace(0, 1, 16)
+    grid = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = (lo + grid * (hi - lo))[None]
+    with torch.inference_mode():
+        ref, _ = small.eval().query_canonical(b, smpl, pts)
+        got, d_gpu = small.to(dev).query_canonical(b.to(dev), smpl.to(dev),
+                                                   pts.to(dev))
+    rel = {k: max_abs(got[k].cpu(), ref[k]) / float(ref[k].abs().max())
+           for k in ("rgb", "sigma")}
+    check(all(v <= 1e-4 for v in rel.values()),
+          f"query_canonical card vs CPU: {rel}")
+    check(not any(int(v) for v in d_gpu.values()), "query_canonical overflow")
+    out["query_canonical_vs_cpu"] = {"points": pts.shape[1], **{
+        f"{k}_rel_err": v for k, v in rel.items()}}
+    return out, cases, errs, launches
 
 
 # ---- the branches phase: the off-default model branches at full width ----
@@ -2848,14 +3241,36 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as load_dir:
         load, load_cases, load_errs = loaders(torch, np, dev, load_dir, shims)
-    for row in rows:
-        row["launches_per_loader_step"] = load["humman"]["launches_per_step"].get(
-            row["name"], 0)
-        row["launches_per_loader_render"] = load["humman"][
-            "launches_per_render"][row["name"]]
-        if row["name"] in load_errs:
-            row["max_abs_err"] = max(row["max_abs_err"], load_errs[row["name"]])
-    phase("loaders", t0, **load)
+        for row in rows:
+            row["launches_per_loader_step"] = load["humman"][
+                "launches_per_step"].get(row["name"], 0)
+            row["launches_per_loader_render"] = load["humman"][
+                "launches_per_render"][row["name"]]
+            if row["name"] in load_errs:
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         load_errs[row["name"]])
+        phase("loaders", t0, **load)
+
+        # ---- render_clis: gen_videos, gen_samples, render_demo,
+        # debug_project (on the loaders' HuMMan tree), the visualizer ------
+        t0 = time.perf_counter()
+        rc_dir = os.path.join(load_dir, "render_clis")
+        os.makedirs(rc_dir)
+        rc, rc_cases, rc_errs, _ = render_clis(
+            torch, np, dev, rc_dir, os.path.join(load_dir, "humman"), shims)
+        for row in rows:
+            row["launches_per_orbit_frame"] = rc["gen_videos"][
+                "launches_per_frame"].get(row["name"], 0)
+            row["launches_per_query_chunk"] = rc["gen_samples"][
+                "launches_per_chunk"].get(row["name"], 0)
+            row["launches_by_path"].update(
+                orbit_frame=row["launches_per_orbit_frame"],
+                query_chunk=row["launches_per_query_chunk"])
+            if row["name"] in rc_errs:
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         rc_errs[row["name"]])
+        phase("render_clis", t0, **rc)
+    torch.cuda.empty_cache()
 
     # ---- gan: the adversarial phases; gan_metrics: calc_metrics on its run
     t0 = time.perf_counter()
@@ -2875,7 +3290,8 @@ def main():
         phase("gan_metrics", t0, **gan_metrics(torch, np, dev, gan_dir, snap))
     torch.cuda.empty_cache()
     phase("kernels", time.perf_counter() - kernels_s,
-          cases=cases + branch_cases + life_cases + load_cases + gan_cases)
+          cases=cases + branch_cases + life_cases + load_cases + rc_cases
+          + gan_cases)
     torch.cuda.empty_cache()
 
     # ---- agreement with the CPU path on a small input --------------------

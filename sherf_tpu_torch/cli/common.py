@@ -121,3 +121,27 @@ def build_model(cfg: ModelConfig, smpl, device="cuda"
         cfg = dataclasses.replace(cfg, sparse_caps=calibrate_sparse_caps(
             [t_verts], cfg.voxel_size, margin=CAPS_MARGIN))
     return SHERFGenerator(cfg, out_sh=out_sh, device=device), out_sh, cfg
+
+
+def render_cli_config(depth_resolution: int, white_back: bool = False
+                      ) -> ModelConfig:
+    """The model of the render entry points (gen_videos, gen_samples,
+    render_demo, the visualizer), as the JAX CLIs build it: the default
+    widths, budgeted with ``point_capacity_frac`` 0.25 and no calibration,
+    no density noise."""
+    return ModelConfig(render=RenderConfig(
+        depth_resolution=depth_resolution, point_capacity_frac=0.25,
+        density_noise=0.0, white_back=white_back))
+
+
+def generator_weights(model, resume: Optional[str]):
+    """``--resume``: a port checkpoint's EMA weights (as the eval CLI
+    loads them); without it, weights drawn by ``random_init_`` from seed
+    0."""
+    if resume:
+        from sherf_tpu_torch.cli.eval import load_weights
+        load_weights(model, resume)
+    else:
+        from sherf_tpu_torch.models.generator import random_init_
+        random_init_(model, torch.Generator().manual_seed(0))
+    return model

@@ -15,18 +15,25 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG (no filtering)."""
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 image as the bytes of an 8-bit RGB PNG (no
+    filtering)."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"write_png takes (H, W, 3) uint8, got "
+        raise ValueError(f"a PNG is made from (H, W, 3) uint8, got "
                          f"{rgb.shape} {rgb.dtype}")
     H, W = rgb.shape[:2]
     # each scanline starts with filter type 0 (none)
     raw = np.concatenate([np.zeros((H, 1), np.uint8),
                           np.ascontiguousarray(rgb).reshape(H, W * 3)], axis=1)
     header = struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG (no filtering)."""
+    data = png_bytes(rgb)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
-                + _chunk(b"IEND", b""))
+        f.write(data)

@@ -9,7 +9,9 @@ generator and the renderer's budget-overflow counters.  The forward records
 autograd's graph like any module: serving callers wrap it in
 ``torch.inference_mode()`` or ``torch.no_grad()``.  ``train=True`` is the
 training forward (the backbone's unfused modulated convs, density noise
-from the caller's ``torch.Generator``).
+from the caller's ``torch.Generator``).  ``query_canonical(batch, smpl,
+pts)`` evaluates the radiance field at canonical points (shape export,
+the visualizer's cross-section).
 """
 
 from __future__ import annotations
@@ -103,36 +105,47 @@ class SHERFGenerator(nn.Module):
         return torch.stack(feats), torch.stack(coords)
 
     # ------------------------------------------------------------------
+    def _banks(self, ws: torch.Tensor, batch: SHERFBatch, smpl: SMPLModel,
+               noise_mode: str, fused_modconv: bool):
+        """What the renderer's feature lookups read: (planes (B, 3, Hp, Wp,
+        C) or None without the 1D bank, obs_feat, ctx_big, ctx_obs, min_dhw,
+        vol_feats, vol_coords; both None without the 3D bank)."""
+        cfg = self.cfg
+        B = batch.obs_img.shape[0]
+        planes = None
+        if cfg.use_1d_feature:
+            planes = self.backbone.synthesis(ws, noise_mode=noise_mode,
+                                             fused_modconv=fused_modconv)
+            Hp, Wp = planes.shape[2:]                                # NCHW
+            planes = planes.permute(0, 2, 3, 1).reshape(
+                B, Hp, Wp, cfg.n_planes, cfg.plane_channels
+            ).permute(0, 3, 1, 2, 4)
+        obs_feat = self.encoder_2d_feature(batch.obs_img, extract_feature=True)
+        ctx_big = batch_pose_contexts(smpl, batch.t_pose)
+        ctx_obs = batch_pose_contexts(smpl, batch.obs_pose)
+        min_dhw = (batch.t_vertices.amin(dim=1) - 0.05)[:, [2, 1, 0]]
+        vol_feats = vol_coords = None
+        if cfg.use_3d_feature:
+            vol_feats, vol_coords = self._observation_volume(
+                batch, obs_feat, smpl, min_dhw, ctx_obs, ctx_big)
+        return planes, obs_feat, ctx_big, ctx_obs, min_dhw, vol_feats, \
+            vol_coords
+
+    # ------------------------------------------------------------------
     def synthesis(self, ws: torch.Tensor, batch: SHERFBatch, smpl: SMPLModel,
                   noise_mode: str = "none", train: bool = False,
                   generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         B = batch.obs_img.shape[0]
-        planes = self.backbone.synthesis(ws, noise_mode=noise_mode,
-                                         fused_modconv=not train)  # NCHW
-        Hp, Wp = planes.shape[2:]
-        planes = planes.permute(0, 2, 3, 1).reshape(
-            B, Hp, Wp, cfg.n_planes, cfg.plane_channels).permute(0, 3, 1, 2, 4)
-        obs_feat = self.encoder_2d_feature(batch.obs_img, extract_feature=True)
-
+        planes, obs_feat, ctx_big, ctx_obs, min_dhw, vol_feats, vol_coords = \
+            self._banks(ws, batch, smpl, noise_mode, fused_modconv=not train)
         ctx_target = batch_pose_contexts(smpl, batch.pose)
-        ctx_big = batch_pose_contexts(smpl, batch.t_pose)
-        ctx_obs = batch_pose_contexts(smpl, batch.obs_pose)
-        min_dhw = (batch.t_vertices.amin(dim=1) - 0.05)[:, [2, 1, 0]]
-
-        if cfg.use_3d_feature:
-            vol_feats, vol_coords = self._observation_volume(
-                batch, obs_feat, smpl, min_dhw, ctx_obs, ctx_big)
-        else:
-            vol_feats = vol_coords = None
-
         rgb, depth, acc, diag = self.renderer(
-            planes if cfg.use_1d_feature else None, batch.obs_img, obs_feat,
-            vol_feats, vol_coords, min_dhw, batch.ray_o, batch.ray_d,
-            batch.near, batch.far, ctx_target, ctx_big, ctx_obs,
-            batch.vertices, batch.t_vertices, batch.t_bounds, batch.obs_K,
-            batch.obs_R, batch.obs_T, smpl, ray_mask=batch.mask_at_box,
-            train=train, generator=generator)
+            planes, batch.obs_img, obs_feat, vol_feats, vol_coords, min_dhw,
+            batch.ray_o, batch.ray_d, batch.near, batch.far, ctx_target,
+            ctx_big, ctx_obs, batch.vertices, batch.t_vertices,
+            batch.t_bounds, batch.obs_K, batch.obs_R, batch.obs_T, smpl,
+            ray_mask=batch.mask_at_box, train=train, generator=generator)
         H, W = batch.img.shape[1:3]
         out = {"image_raw": rgb.reshape(B, H, W, 3),
                "image_depth": depth.reshape(B, H, W),
@@ -146,6 +159,35 @@ class SHERFGenerator(nn.Module):
         else:
             out["image"] = out["image_raw"]
         return out, diag
+
+    # ------------------------------------------------------------------
+    def query_canonical(self, batch: SHERFBatch, smpl: SMPLModel,
+                        pts: torch.Tensor, dirs: Optional[torch.Tensor] = None):
+        """The radiance field at canonical (big-pose) points, the
+        shape-export path (JAX ``SHERFGenerator.query_canonical``).
+
+        pts: (B, M, 3).  Returns ({"rgb": (B, M, 3), "sigma": (B, M, 1)},
+        diag): the decoder's outputs and the overflow counters of the
+        lookups (the sparse-conv site caps; the shortlist counter when
+        ``render.knn_shortlist`` > 0 in budgeted mode)."""
+        planes, obs_feat, ctx_big, ctx_obs, min_dhw, vol_feats, vol_coords = \
+            self._banks(self.mapping(batch.obs_img), batch, smpl, "none",
+                        fused_modconv=True)
+        if dirs is None:
+            dirs = torch.zeros_like(pts)
+        diag = Diag()
+        outs = []
+        for b in range(pts.shape[0]):
+            pick = lambda t: None if t is None else t[b]
+            bank = self.renderer._bank((
+                pick(planes), batch.obs_img[b], obs_feat[b], pick(vol_feats),
+                pick(vol_coords), min_dhw[b], ctx_obs[b], ctx_big[b],
+                batch.t_vertices[b], batch.t_bounds[b], batch.obs_K[b],
+                batch.obs_R[b], batch.obs_T[b], smpl, diag))
+            outs.append(self.renderer.decode_points(*bank[:6], pts[b],
+                                                    dirs[b], *bank[6:]))
+        return {k: torch.stack([o[k] for o in outs]) for k in ("rgb", "sigma")
+                }, diag
 
     # ------------------------------------------------------------------
     def forward(self, batch: SHERFBatch, smpl: SMPLModel,

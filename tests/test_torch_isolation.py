@@ -19,7 +19,14 @@ EXPECTED = ("sherf_tpu_torch.cli.eval", "sherf_tpu_torch.cli.train",
             "sherf_tpu_torch.cli.calc_metrics", "sherf_tpu_torch.train.gan",
             "sherf_tpu_torch.features.discriminator",
             "sherf_tpu_torch.features.inception",
-            "sherf_tpu_torch.eval.gan_metrics")
+            "sherf_tpu_torch.eval.gan_metrics",
+            "sherf_tpu_torch.compat.legacy_import",
+            "sherf_tpu_torch.geometry.shape", "sherf_tpu_torch.eval.gif",
+            "sherf_tpu_torch.cli.gen_videos", "sherf_tpu_torch.cli.gen_samples",
+            "sherf_tpu_torch.cli.render_demo",
+            "sherf_tpu_torch.cli.debug_project",
+            "sherf_tpu_torch.cli.visualizer", "sherf_tpu_torch.viz.renderer",
+            "sherf_tpu_torch.viz.widgets", "sherf_tpu_torch.viz.server")
 
 CHILD = textwrap.dedent(f"""
     import importlib, pkgutil, sys
