@@ -6,7 +6,7 @@ sm_90a):
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels with nvcc and drives nine paths of
+It builds the port's CUDA kernels with nvcc and drives the paths of
 ``sherf_tpu_torch`` at the production configuration (512x512 rays x 48
 samples, bf16, calibrated budgets — the configuration of ``bench.py``),
 with random weights drawn from a seeded ``torch.Generator``:
@@ -86,6 +86,24 @@ with random weights drawn from a seeded ``torch.Generator``:
     here; InceptionV3's ms per batch of 8 at 299, and its card features
     against the CPU's on 2 images of 320x320 (rtol / atol 1e-3).
 
+  * the native host-ops library (phase ``native``, before the frame):
+    ``sherf_tpu_torch/native`` built with this machine's g++, its rays
+    against numpy's at 512x512 and 640x360 (the tests' bounds) and both
+    timed, as rays and inside a loader item;
+  * the image-folder dataset tool (phase ``dataset_tool``): a tree of
+    PNG / JPEG / BMP written here packed at 256x256 center-crop and read
+    back through ``ImageFolderDataset``;
+  * TF32 (phase ``tf32``): the CLIs' f32 model at the frame's scene run
+    with PyTorch's TF32 default and with TF32 off (one render's PSNR, one
+    train step's loss and gradients, InceptionV3 features), then every
+    CLI's ``resolve_device`` must turn TF32 off;
+  * multi-process training (phase ``parallel``, after ``gan_metrics``):
+    two ranks on the card (gloo) at meshes (1, 2) and (2, 1), each running
+    a sharded render, train step and GAN round at the production
+    configuration on its shard, held by rank 0 to the one-process phases on
+    the same items (``parallel/reference.py``), every rank's launches,
+    overflow and parameters checked; each rank's step timed and profiled.
+
 For each path the launch counters are reset just before it and read just
 after, and must be what the path launches (the importance frame: 4 nn_1,
 1 ray_body_mask, 9 compact_mask; with the shortlist: 4 nn_1_shortlist, 4
@@ -136,7 +154,7 @@ import subprocess
 import sys
 import time
 
-WATCHDOG_S = 900
+WATCHDOG_S = 1150
 # device-side names of the port's own CUDA kernels (csrc/*.cu)
 PORT_KERNELS = {"nn_1": ("nn1_kernel",),
                 "ray_body_mask": ("ray_mask_tiles_kernel",),
@@ -484,6 +502,16 @@ def held_weighted_accumulate(torch, what, ids, w, g, n_rows):
     return ({"n": ids.shape[0], "k": ids.shape[1], "c": g.shape[1],
              "n_rows": n_rows, "max_abs_err": e, "within_bound": True,
              **use}, e)
+
+
+def kernel_shims():
+    """The Recorder's list for the four kernels of the default path."""
+    from sherf_tpu_torch.kernels import compaction, knn, segment_accum
+    return [(knn, "nn_1_cuda", "nn_1"),
+            (knn, "ray_body_mask_cuda", "ray_body_mask"),
+            (compaction, "compact_mask_cuda", "compact_mask"),
+            (segment_accum, "weighted_accumulate_cuda",
+             "weighted_accumulate")]
 
 
 HELD = {"nn_1": held_nn_1, "ray_body_mask": held_ray_body_mask,
@@ -2340,6 +2368,615 @@ def gan_metrics(torch, np, dev, out_dir, snap):
             "inception_card_vs_cpu": err}
 
 
+# ---------------------------------------------------------------------------
+# TF32: what PyTorch's default costs the f32 CLIs, and the repair
+
+
+def tf32(torch, np, dev, cfg, out_sh, batch, smpl_d):
+    """Phase ``tf32``: the CLIs' f32 model (default widths, 48 samples,
+    budgets calibrated at MARGIN on the frame's scene, seed-0 weights with
+    the decoder's density bias raised) run with both TF32 switches on
+    (PyTorch's cuDNN default) and off: one render (PSNR between the two),
+    one train step's loss and per-parameter gradients (worst relative L2),
+    InceptionV3 features on 8 images at 299 (max abs).  Then every CLI's
+    ``resolve_device`` must leave both switches off."""
+    import dataclasses
+    import importlib
+
+    from sherf_tpu_torch.core.config import RenderConfig, TrainConfig
+    from sherf_tpu_torch.features import inception as t_inc
+    from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+    from sherf_tpu_torch.train import reconstruction_loss
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              render=dataclasses.replace(
+                                  cfg.render, density_noise=0.0))
+    models = {}
+    for on in (False, True):
+        m = SHERFGenerator(f32, out_sh=out_sh, device=dev)
+        random_init_(m, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            m.renderer.decoder.alpha.bias += DENSITY_BIAS
+        models[on] = m
+    inc = t_inc.make_inception(random_state_dict(
+        torch, t_inc.InceptionV3().state_dict(), 12), dev)
+    x = torch.rand(8, t_inc.INPUT_SIZE, t_inc.INPUT_SIZE, 3,
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    out = {}
+    try:
+        for on, m in models.items():
+            torch.backends.cudnn.allow_tf32 = on
+            torch.backends.cuda.matmul.allow_tf32 = on
+            with torch.no_grad():
+                img, diag = m.eval()(batch, smpl_d)
+                feats, _ = inc(x)
+            check(all(int(v) == 0 for v in diag.values()),
+                  f"tf32: render overflow {diag}")
+            o, diag = m.train()(batch, smpl_d, train=True)
+            loss, _ = reconstruction_loss(o, batch, TrainConfig(batch_size=1))
+            loss.backward()
+            out[on] = (img["image_raw"], float(loss.detach()), feats)
+            del o, loss
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rel = grad_rel_errors(models[False], models[True])
+    worst = max(rel, key=rel.get)
+    res = {"render_psnr_db": psnr_db(np, out[False][0], out[True][0]),
+           "render_max_abs": max_abs(out[False][0], out[True][0]),
+           "loss_tf32_off": out[False][1], "loss_tf32_on": out[True][1],
+           "loss_rel_diff": abs(out[True][1] - out[False][1])
+           / abs(out[False][1]),
+           "grad_worst_rel_l2": rel[worst], "grad_worst_param": worst,
+           "grad_median_rel_l2": float(np.median(list(rel.values()))),
+           "params_compared": len(rel),
+           "inception_pool3_max_abs": max_abs(out[False][2], out[True][2]),
+           "inception_pool3_max_abs_ref": float(out[False][2].abs().max())}
+    del models, inc
+    torch.cuda.empty_cache()
+    for name in ("train", "eval", "calc_metrics", "gen_videos", "gen_samples",
+                 "render_demo", "debug_project", "visualizer"):
+        mod = importlib.import_module(f"sherf_tpu_torch.cli.{name}")
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        mod.resolve_device("cuda")
+        check(not torch.backends.cudnn.allow_tf32
+              and not torch.backends.cuda.matmul.allow_tf32,
+              f"tf32: cli.{name}'s resolve_device left TF32 on")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res["clis_checked"] = 8
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the native host-ops library
+
+
+def native_phase(np):
+    """Phase ``native``: the host-ops library builds (with this machine's
+    g++); its rays against numpy's at the tests' bounds (rays 1e-4, box
+    masks agreeing on > 0.999 of the rays, near / far 1e-3 where both hit)
+    on a 512x512 and a 640x360 view, each timed; and a loader item's rays
+    (``sample_rays_for_image``) built through the library and through
+    numpy, timed."""
+    from sherf_tpu_torch import native
+    from sherf_tpu_torch.data import base
+    from sherf_tpu_torch.data.synthetic import synthetic_camera
+    from sherf_tpu_torch.geometry.rays import get_rays_np, near_far_aabb_np
+
+    t0 = time.perf_counter()
+    lib = native.lib()
+    build_s = time.perf_counter() - t0
+    check(lib is not None, "native: the host-ops library did not build")
+    bounds = np.array([[-0.45, -1.2, -0.25], [0.45, 0.75, 0.25]], np.float32)
+    out = {"library": os.path.relpath(str(native.library_path())),
+           "build_or_load_s": build_s}
+    rng = np.random.RandomState(0)
+
+    def best_ms(fn, n=5):
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    for H_, W_ in ((512, 512), (360, 640)):
+        K, R, T = synthetic_camera(H_, W_, rng)
+        K, R, T = (np.asarray(a, np.float32) for a in (K, R, T))
+        ro, rd, near, far, mask = native.prepare_rays_native(H_, W_, K, R, T,
+                                                             bounds)
+        ro_n, rd_n = get_rays_np(H_, W_, K, R, T)
+        ro_n = ro_n.reshape(-1, 3).astype(np.float32)
+        rd_n = rd_n.reshape(-1, 3).astype(np.float32)
+        n_n, f_n, m_n = near_far_aabb_np(bounds, ro_n, rd_n)
+        both = mask & m_n
+        err = {"ray_o": float(np.abs(ro - ro_n).max()),
+               "ray_d": float(np.abs(rd - rd_n).max()),
+               "mask_agree": float((mask == m_n).mean()),
+               "near": float(np.abs(near - n_n)[both].max(initial=0)),
+               "far": float(np.abs(far - f_n)[both].max(initial=0))}
+        check(err["ray_o"] <= 1e-4 and err["ray_d"] <= 1e-4
+              and err["mask_agree"] > 0.999 and err["near"] <= 1e-3
+              and err["far"] <= 1e-3 and mask.any(),
+              f"native: rays at {H_}x{W_} against numpy {err}")
+
+        def numpy_rays():
+            o, d = get_rays_np(H_, W_, K, R, T)
+            near_far_aabb_np(bounds, o.reshape(-1, 3).astype(np.float32),
+                             d.reshape(-1, 3).astype(np.float32))
+        img = rng.rand(H_, W_, 3).astype(np.float32)
+        msk = (rng.rand(H_, W_) > 0.5).astype(np.float32)
+        item = lambda: base.sample_rays_for_image(img, msk, K, R, T, bounds)
+        native_item_ms = best_ms(item)
+        real = native.prepare_rays_native
+        native.prepare_rays_native = lambda *a, **k: None
+        try:
+            numpy_item_ms = best_ms(item)
+        finally:
+            native.prepare_rays_native = real
+        out[f"{H_}x{W_}"] = {
+            "vs_numpy": err, "mask_share": float(mask.mean()),
+            "rays_native_ms": best_ms(lambda: native.prepare_rays_native(
+                H_, W_, K, R, T, bounds)),
+            "rays_numpy_ms": best_ms(numpy_rays),
+            "item_rays_native_ms": native_item_ms,
+            "item_rays_numpy_ms": numpy_item_ms}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the image-folder dataset tool
+
+
+def _bmp24(np, img):
+    """An (H, W, 3) uint8 image as an uncompressed bottom-up 24-bit BMP."""
+    import struct
+    H_, W_ = img.shape[:2]
+    stride = (W_ * 3 + 3) // 4 * 4
+    rows = np.zeros((H_, stride), np.uint8)
+    rows[:, :W_ * 3] = img[::-1, :, ::-1].reshape(H_, W_ * 3)
+    px = rows.tobytes()
+    header = struct.pack("<IiiHHIIiiII", 40, W_, H_, 1, 24, 0, len(px), 2835,
+                         2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + len(px), 0, 0, 54) + header + px
+
+
+def dataset_tool_phase(np, out_dir):
+    """Phase ``dataset_tool``: a tree written here (two PNGs, the 512x512
+    JPEG fixture, a 24-bit BMP, in sub-folders, with ``dataset.json``
+    labels) packed by ``cli.dataset_tool.main`` at 256x256 center-crop,
+    then read back through ``ImageFolderDataset``: names, labels, and each
+    image equal to ``transform_image`` of its source item."""
+    import json as json_
+    import zipfile
+
+    from sherf_tpu_torch.cli import dataset_tool
+    from sherf_tpu_torch.data.image_folder import ImageFolderDataset
+    from sherf_tpu_torch.eval.png import png_bytes
+
+    rng = np.random.RandomState(0)
+    src = os.path.join(out_dir, "tree")
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "jpeg", "person_512_420.jpg")
+    files = {"a/p0.png": png_bytes(rng.randint(0, 256, (480, 640, 3)).astype(
+                 np.uint8)),
+             "a/p1.png": png_bytes(rng.randint(0, 256, (600, 400, 3)).astype(
+                 np.uint8)),
+             "b/photo.jpg": open(fixture, "rb").read(),
+             "b/q.bmp": _bmp24(np, rng.randint(0, 256, (300, 500, 3)).astype(
+                 np.uint8))}
+    for name, data in files.items():
+        os.makedirs(os.path.dirname(os.path.join(src, name)), exist_ok=True)
+        with open(os.path.join(src, name), "wb") as f:
+            f.write(data)
+    with open(os.path.join(src, "dataset.json"), "w") as f:
+        json_.dump({"labels": [[n, i % 3] for i, n in enumerate(files)]}, f)
+    dest = os.path.join(out_dir, "data.zip")
+    t0 = time.perf_counter()
+    dataset_tool.main(["--source", src, "--dest", dest, "--resolution",
+                       "256x256", "--transform", "center-crop"])
+    pack_s = time.perf_counter() - t0
+    tree = ImageFolderDataset(src, use_labels=True)
+    packed = ImageFolderDataset(dest, use_labels=True)
+    try:
+        check(len(packed) == len(tree) == 4, f"dataset_tool: {len(packed)} "
+              f"items packed of {len(tree)}")
+        for k in range(len(tree)):
+            (a, la), (b, lb) = tree[k], packed[k]
+            want = dataset_tool.transform_image(a, "center-crop", 256, 256)
+            check(b.shape == (256, 256, 3) and np.array_equal(b, want)
+                  and np.array_equal(la, lb),
+                  f"dataset_tool: item {k} differs from its source")
+        with zipfile.ZipFile(dest) as zf:
+            names = sorted(zf.namelist())
+        check(names == ["dataset.json"] + [f"img{i:08d}.png"
+                                           for i in range(4)],
+              f"dataset_tool: zip members {names}")
+    finally:
+        tree.close()
+        packed.close()
+    return {"items": 4, "pack_s": pack_s, "zip_bytes": os.path.getsize(dest)}
+
+
+# ---------------------------------------------------------------------------
+# multi-process training: two ranks on the one card
+
+# the meshes of phase ``parallel`` and their global batches
+PAR_MESHES = ((1, 2), (2, 1))
+# Adam's eps in the phase's comparisons (as the JAX package's sharded GAN
+# test): g / (sqrt(v) + eps) flips sign under reduction-order noise for
+# near-zero gradients, which no parameter tolerance can hold
+PAR_EPS = 1e-3
+PAR_LOSS_RTOL = 1e-4
+PAR_PARAM_RTOL, PAR_PARAM_ATOL = 2e-3, 2e-5
+# the gradient norm (f32): a wrong reduction scale (x rm, / dm) is >= 2x off
+PAR_GRAD_NORM_RTOL = 1e-3
+# bf16: the shards' matmuls and scatter-adds take other row counts and
+# orders than the one-process step's, so gradients differ at bf16 rounding
+# (~4e-3 an operation) and Adam's first step turns a near-zero gradient's
+# sign flip into a 2 lr parameter difference; the bf16 run is held on its
+# losses and on its gradients' global relative L2, the f32 run on the
+# parameters
+PAR_BF16_GRAD_REL = 1e-2
+PAR_TIMED_STEPS = 3
+PAR_JOIN_S = 600.0
+# each rank's launches: per step / round phase, one item of the rank's
+PAR_LAUNCHES = {"render": FRAME_LAUNCHES, "train": TRAIN_LAUNCHES,
+                "gan_g": TRAIN_LAUNCHES, "gan_d": FRAME_LAUNCHES,
+                "gan_dreg": NONE}
+
+
+def _digest(model):
+    import hashlib
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        h.update(n.encode())
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_rank(rank, world, init_file, shape, out_dir):
+    """One rank of phase ``parallel`` (run by ``parallel/launch.run_local``):
+    the production scene at batch dm, this rank's shard.  In bf16 (the
+    production dtype): a sharded render counted, its kernel calls held,
+    and PAR_TIMED_STEPS timed, one sharded train step counted and held,
+    PAR_TIMED_STEPS timed and one profiled, one sharded GAN round counted;
+    in f32: one sharded train step and GAN round.  Rank 0 then runs the
+    one-process phases on the same items (``parallel/reference.py``) and
+    compares.  Writes ``rank<r>.json``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sherf_tpu_torch.core.calibrate import (calibrate_budgets,
+                                                calibrate_sparse_caps)
+    from sherf_tpu_torch.core.config import (ModelConfig, RenderConfig,
+                                             TrainConfig)
+    from sherf_tpu_torch.data.synthetic import make_synthetic_batch
+    from sherf_tpu_torch.features.discriminator import DualDiscriminator
+    from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
+    from sherf_tpu_torch.kernels import _cuda
+    from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+    from sherf_tpu_torch.parallel import make_mesh, make_sharded_render
+    from sherf_tpu_torch.parallel.mesh import shard_batch, shard_generator
+    from sherf_tpu_torch.parallel.multihost import (
+        coordination_barrier, maybe_initialize_distributed, rank_device)
+    from sherf_tpu_torch.parallel.reference import (data_parallel_phase,
+                                                    split_items)
+    from sherf_tpu_torch.smpl import big_pose_params, smpl_forward, synthetic_smpl
+    from sherf_tpu_torch.train import create_train_state, make_train_step
+    from sherf_tpu_torch.train.gan import (_step_d, create_d_train_state,
+                                           make_gan_train_step,
+                                           make_sharded_gan_steps)
+    from sherf_tpu_torch.train.step import make_sharded_train_step
+    from sherf_tpu_torch.train.train_state import ema_beta, ema_update
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    maybe_initialize_distributed("file://" + init_file, world, rank,
+                                 device="cuda")
+    dev = rank_device("cuda")
+    dm = shape[0]
+    smpl = synthetic_smpl(0, device="cpu")
+    bp = big_pose_params()
+    with torch.no_grad():
+        t_verts = smpl_forward(smpl, torch.from_numpy(bp["poses"]),
+                               torch.from_numpy(bp["shapes"]))[0].numpy()
+    base = ModelConfig(compute_dtype="bfloat16",
+                       render=RenderConfig(depth_resolution=DEPTH,
+                                           density_noise=0.0))
+    _, out_sh = prepare_voxel_volume(t_verts, voxel_size=base.voxel_size)
+    base = dataclasses.replace(base, sparse_caps=calibrate_sparse_caps(
+        [t_verts], base.voxel_size))
+    smpl_d = smpl.to(dev)
+    batch = make_synthetic_batch(smpl, batch_size=dm, H=H, W=W, seed=0,
+                                 device=dev)
+    fitted, _ = calibrate_budgets([batch], base, margin=MARGIN)
+    base = dataclasses.replace(base, render=fitted)
+    mesh = make_mesh(shape)
+    local = shard_batch(batch, mesh)
+    groups = split_items(batch, dm)
+    tcfg = TrainConfig(batch_size=dm, eps=PAR_EPS, adv_weight=GAN_ADV_WEIGHT,
+                       d_reg_interval=GAN_REG_INTERVAL)
+    beta = ema_beta(tcfg.batch_size, tcfg.ema_kimg)
+
+    def generator(cfg):
+        g = SHERFGenerator(cfg, out_sh=out_sh, device=dev)
+        return random_init_(g, torch.Generator().manual_seed(0))
+
+    def disc():
+        d = DualDiscriminator(img_resolution=H).to(dev)
+        return create_d_train_state(d, tcfg,
+                                    generator=torch.Generator().manual_seed(1))
+
+    def counted(fn, *args):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        ts = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, dict(_cuda.LAUNCHES), (time.perf_counter() - ts) * 1e3
+
+    cases, errs = [], {k: 0.0 for k in HELD}
+
+    def counted_held(path, fn, *args):
+        """``counted``, every kernel call of the run then held against its
+        plain version on the same card tensors (after the count: those
+        launches are not counted)."""
+        rec = Recorder(kernel_shims())
+        with rec:
+            got = counted(fn, *args)
+        name = f"sharded_{shape[0]}x{shape[1]}_{path}"
+        held = held_calls(torch, rec.calls, name, errs)
+        for key, n in got[1].items():
+            check(sum(c["kernel"] == key for c in held) >= n,
+                  f"{name}: rank {rank} held fewer {key} calls than its "
+                  f"{n} launches")
+        cases.extend(dict(c, rank=rank) for c in held)
+        return got
+
+    def floats(m):
+        return {k: float(v) for k, v in m.items()}
+
+    def kept(model, grads=False):
+        return {n: (p.grad if grads else p).detach().clone()
+                for n, p in model.named_parameters()
+                if not grads or p.grad is not None}
+
+    def g_update(s):
+        s.apply_gradients()
+        ema_update(s.ema, s.model.named_parameters(), beta)
+
+    def params_off(got, model):
+        """Entries outside rtol / atol of the one-process parameters, and
+        the worst entry's error in units of its tolerance."""
+        bad, worst = 0, 0.0
+        for n, p in model.named_parameters():
+            a, b = got[n].double(), p.detach().double()
+            tol = PAR_PARAM_ATOL + PAR_PARAM_RTOL * b.abs()
+            bad += int(((a - b).abs() > tol).sum())
+            worst = max(worst, float(((a - b).abs() / tol).max()))
+        return bad, worst
+
+    def grads_rel(got, model):
+        """The global, the median and the worst per-leaf relative L2 of the
+        sharded gradients against the one-process ones."""
+        num = den = 0.0
+        worst, name, leaves = 0.0, None, []
+        for n, p in model.named_parameters():
+            if p.grad is None:
+                continue
+            a, b = got[n].double(), p.grad.double()
+            d2, r2 = float(((a - b) ** 2).sum()), float((b ** 2).sum())
+            num, den = num + d2, den + r2
+            if r2 > 0:
+                leaves.append((d2 / r2) ** 0.5)
+                if leaves[-1] > worst:
+                    worst, name = leaves[-1], n
+        return {"global": (num / den) ** 0.5, "worst_leaf": worst,
+                "median_leaf": float(np.median(leaves)), "leaves": len(leaves),
+                "worst_param": name}
+
+    res = {"rank": rank, "mesh": [mesh.data, mesh.rays, mesh.data_index,
+                                  mesh.ray_index],
+           "backend": mesh.backend, "device": str(dev),
+           "local_rays": int(local.ray_o.shape[1]), "launches": {},
+           "setup_s": time.perf_counter() - t_start}
+    for dt in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, compute_dtype=dt)
+        r = res[dt] = {}
+        if dt == "bfloat16":                # (a) render
+            render = make_sharded_render(generator(cfg).eval(), smpl_d, mesh)
+            img, res["launches"]["render"], first_ms = counted_held(
+                "render", render, local)
+            r["render_ms"] = [first_ms] + [counted(render, local)[2]
+                                           for _ in range(PAR_TIMED_STEPS)]
+            r["render_overflow"] = float(img["overflow"])
+        # (b) the train step
+        g = generator(cfg)
+        state = create_train_state(g, tcfg)
+        step = make_sharded_train_step(g, smpl_d, tcfg, mesh)
+        gen = shard_generator(0, mesh, dev)
+        m, launches, first_ms = (counted_held("train", step, state, local,
+                                              gen) if dt == "bfloat16" else
+                                 counted(step, state, local, gen))
+        r["train"], r["train_digest"] = floats(m), _digest(g)
+        train_params, train_grads = kept(g), kept(g, grads=True)
+        if dt == "bfloat16":
+            res["launches"]["train"] = launches
+            r["step_ms"] = [first_ms] + [counted(step, state, local, gen)[2]
+                                         for _ in range(PAR_TIMED_STEPS)]
+            prof = profiled(lambda: step(state, local, gen), torch,
+                            TRAIN_LAUNCHES)
+            r["step_profile"] = {k: prof[k] for k in (
+                "wall_ms_profiled", "device_busy_ms", "device_idle_share",
+                "kernel_launches", "port_kernels_ms")}
+            r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, step, g
+        # (c) one GAN round
+        g = generator(cfg)
+        g_state, d_state = create_train_state(g, tcfg), disc()
+        g_step, d_main, d_reg = make_sharded_gan_steps(g, smpl_d, tcfg, mesh)
+        gen = shard_generator(0, mesh, dev)
+        for path, fn, args in (
+                ("gan_g", g_step, (g_state, d_state, local, gen)),
+                ("gan_d", d_main, (d_state, g_state, local, gen)),
+                ("gan_dreg", d_reg, (d_state, local))):
+            m, launches, r[f"{path}_ms"] = counted(fn, *args)
+            r[path] = floats(m)
+            if path == "gan_g":
+                gan_g_grads = kept(g, grads=True)
+            if dt == "bfloat16":
+                res["launches"][path] = launches
+        r["gan_digest"] = _digest(g) + _digest(d_state.model)
+        gan_params = (kept(g), kept(d_state.model))
+        del g_state, d_state, g_step, d_main, d_reg, g
+
+        # (d) rank 0: the one-process phases on the same items, compared
+        if rank == 0:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            ref = {}
+            if dt == "bfloat16":
+                with torch.no_grad():
+                    out, _ = generator(cfg).eval()(batch, smpl_d)
+                d = mesh.data_index
+                r["render_psnr_db"] = psnr_db(
+                    np, img["image_raw"],
+                    out["image_raw"][d:d + 1 if dm > 1 else None])
+                del out, img
+            g = generator(cfg)
+            state = create_train_state(g, tcfg)
+            ts = time.perf_counter()
+            ref["train"] = data_parallel_phase(
+                make_train_step(g, smpl_d, tcfg), state, groups,
+                args_after=(gen,), step=g_update)
+            torch.cuda.synchronize()
+            r["one_process_step_ms"] = (time.perf_counter() - ts) * 1e3
+            r["train_grads_rel"] = grads_rel(train_grads, g)
+            r["train_params_off"] = params_off(train_params, g)
+            del state, g
+            g = generator(cfg)
+            g_state, d_state = create_train_state(g, tcfg), disc()
+            g_step, d_main, d_reg = make_gan_train_step(g, smpl_d, tcfg)
+            ref["gan_g"] = data_parallel_phase(
+                g_step, g_state, groups, args_before=(d_state,),
+                args_after=(gen,), step=g_update)
+            r["gan_g_grads_rel"] = grads_rel(gan_g_grads, g)
+            ref["gan_d"] = data_parallel_phase(
+                d_main, d_state, groups, args_before=(g_state,),
+                args_after=(gen,), step=_step_d)
+            ref["gan_dreg"] = data_parallel_phase(d_reg, d_state, groups,
+                                                  step=_step_d)
+            r["gan_g_params_off"] = params_off(gan_params[0], g)
+            r["gan_d_params_off"] = params_off(gan_params[1], d_state.model)
+            r["reference"] = {k: floats(v) for k, v in ref.items()}
+            del g_state, d_state, g
+        del train_params, train_grads, gan_params, gan_g_grads
+        torch.cuda.empty_cache()
+        coordination_barrier(f"parallel_{dt}")
+    res["seconds"] = time.perf_counter() - t_start
+    res["cases"], res["errs"] = cases, errs
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def parallel(torch, out_dir, meshes=PAR_MESHES, backend="gloo"):
+    """Phase ``parallel``: two ranks on the card (gloo: NCCL refuses two
+    ranks on one GPU) at the production scene (512x512x48, budgets
+    calibrated at MARGIN on the global batch), at meshes (1, 2) (batch 1)
+    and (2, 1) (batch 2).  Each rank runs the sharded render, train step
+    and GAN round on its shard, in bf16 and in f32; rank 0 holds them to
+    the one-process phases on the card.  f32: every phase's losses rtol
+    1e-4, parameters after each step rtol 2e-3 / atol 2e-5, the gradient
+    norm rtol 1e-3.  bf16: the losses of the phases that start from the
+    shared weights (the train step, Gmain) rtol 1e-4, their gradients'
+    global relative L2 <= 1e-2, the render >= 45 dB.  Every rank: overflow
+    0, the expected launches per phase, the ``backend`` the ranks chose,
+    the same parameters as rank 0 after each phase, and every kernel call
+    of its first bf16 render and train step held against the kernel's
+    plain version on the same card tensors (paths ``sharded_<dm>x<rm>_
+    render`` / ``_train``).  Returns (numbers, held cases, each kernel's
+    max abs error).  (``meshes`` and ``backend`` are for a run on more
+    cards: there each rank owns its card and the backend is NCCL.)"""
+    from sherf_tpu_torch.parallel.launch import run_local
+
+    out, cases, errs = {}, [], {k: 0.0 for k in HELD}
+    for shape in meshes:
+        world = shape[0] * shape[1]
+        key = f"mesh_{shape[0]}x{shape[1]}"
+        run_dir = os.path.join(out_dir, key)
+        os.makedirs(run_dir)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        codes = run_local(parallel_rank, world,
+                          (os.path.join(run_dir, "store"), shape, run_dir),
+                          timeout_s=PAR_JOIN_S)
+        check(codes == [0] * world,
+              f"parallel {shape}: rank exit codes {codes}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            cases += ranks[-1].pop("cases")
+            for k, e in ranks[-1].pop("errs").items():
+                errs[k] = max(errs[k], e)
+        r0 = ranks[0]
+        for res in ranks:
+            check(res["backend"] == backend,
+                  f"parallel {shape}: backend {res['backend']}")
+            for path, want in PAR_LAUNCHES.items():
+                check(res["launches"][path] == want,
+                      f"parallel {shape}: rank {res['rank']} {path} launches "
+                      f"{res['launches'][path]}, expected {want}")
+            for dt in ("bfloat16", "float32"):
+                d = res[dt]
+                check(d.get("render_overflow", 0) == 0
+                      and d["train"]["overflow"] == 0
+                      and d["gan_g"]["overflow"] == 0,
+                      f"parallel {shape} {dt}: rank {res['rank']} overflow")
+                check(d["train_digest"] == r0[dt]["train_digest"]
+                      and d["gan_digest"] == r0[dt]["gan_digest"],
+                      f"parallel {shape} {dt}: rank {res['rank']} parameters "
+                      f"differ from rank 0's")
+        b16, f32 = r0["bfloat16"], r0["float32"]
+        check(b16["render_psnr_db"] == "inf" or b16["render_psnr_db"] >= 45.0,
+              f"parallel {shape}: render {b16['render_psnr_db']} dB")
+        # bf16: the phases that start from the shared weights (the train
+        # step, Gmain); Dmain and Dreg start from the states Gmain and
+        # Dmain stepped, which bf16's gradient noise has moved (see
+        # PAR_BF16_GRAD_REL)
+        for dt, d, phases in (("bfloat16", b16, ("train", "gan_g")),
+                              ("float32", f32, ("train", "gan_g", "gan_d",
+                                                "gan_dreg"))):
+            for ph in phases:
+                for k, v in d["reference"][ph].items():
+                    if k == "overflow" or (k == "grad_norm"
+                                           and dt == "bfloat16"):
+                        continue
+                    tol = PAR_GRAD_NORM_RTOL if k == "grad_norm" \
+                        else PAR_LOSS_RTOL
+                    check(abs(d[ph][k] - v) <= tol * abs(v),
+                          f"parallel {shape} {dt}: {ph} {k} {d[ph][k]} vs "
+                          f"one process {v}")
+        for ph in ("train", "gan_g"):
+            check(b16[f"{ph}_grads_rel"]["global"] <= PAR_BF16_GRAD_REL,
+                  f"parallel {shape} bf16: {ph} gradients "
+                  f"{b16[f'{ph}_grads_rel']} from the one-process step")
+        for ph in ("train", "gan_g", "gan_d"):
+            check(f32[f"{ph}_params_off"][0] == 0,
+                  f"parallel {shape} f32: {ph} parameters off the "
+                  f"one-process step: {f32[f'{ph}_params_off']} (entries, "
+                  f"worst error in tolerances)")
+        out[key] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+    return out, cases, errs
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_all = time.perf_counter()
@@ -2429,10 +3066,18 @@ def main():
           exact_cap=int(M * fitted.exact_capacity_frac),
           prune_step_margin=fitted.prune_step_margin)
 
-    shims = [(knn, "nn_1_cuda", "nn_1"),
-             (knn, "ray_body_mask_cuda", "ray_body_mask"),
-             (compaction, "compact_mask_cuda", "compact_mask"),
-             (segment_accum, "weighted_accumulate_cuda", "weighted_accumulate")]
+    # ---- native: the host-ops library; dataset_tool: the image-folder zip
+    t0 = time.perf_counter()
+    phase("native", t0, **native_phase(np))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as dt_dir:
+        phase("dataset_tool", t0, **dataset_tool_phase(np, dt_dir))
+
+    # ---- tf32: PyTorch's default against full f32, and the CLIs' repair --
+    t0 = time.perf_counter()
+    phase("tf32", t0, **tf32(torch, np, dev, cfg, out_sh, batch, smpl_d))
+
+    shims = kernel_shims()
     launches = {}
 
     # ---- frame: the serving path, through the kernels --------------------
@@ -3289,9 +3934,26 @@ def main():
         t0 = time.perf_counter()
         phase("gan_metrics", t0, **gan_metrics(torch, np, dev, gan_dir, snap))
     torch.cuda.empty_cache()
+
+    # ---- parallel: the sharded steps over two ranks on the card -----------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as par_dir:
+        par, par_cases, par_errs = parallel(torch, par_dir)
+    for row in rows:
+        if row["name"] in par_errs:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     par_errs[row["name"]])
+        row["launches_per_sharded_phase"] = {
+            key: {path: n.get(row["name"], 0)
+                  for path, n in res["ranks"][0]["launches"].items()}
+            for key, res in par.items()}
+        row["launches_by_path"].update({
+            f"sharded_{path}": n for path, n in row[
+                "launches_per_sharded_phase"]["mesh_1x2"].items()})
+    phase("parallel", t0, **par)
     phase("kernels", time.perf_counter() - kernels_s,
           cases=cases + branch_cases + life_cases + load_cases + rc_cases
-          + gan_cases)
+          + gan_cases + par_cases)
     torch.cuda.empty_cache()
 
     # ---- agreement with the CPU path on a small input --------------------

@@ -3,7 +3,9 @@ SMPL asset resolution, model flags, and model / config construction.
 
 Every entry point takes ``--device`` (default ``cuda``); the CPU is used
 only when ``--device cpu`` is passed, and a missing GPU is an error, not a
-fallback.
+fallback.  Every entry point resolves its device through
+:func:`resolve_device`, which also turns TF32 off: the f32 convolutions and
+matmuls run in full f32, as the JAX package computes them.
 """
 
 from __future__ import annotations
@@ -26,7 +28,11 @@ from sherf_tpu_torch.smpl.model import load_smpl, synthetic_smpl
 
 
 def resolve_device(name: str) -> torch.device:
-    """The ``--device`` flag as a device; ``cuda`` without a GPU raises."""
+    """The ``--device`` flag as a device; ``cuda`` without a GPU raises.
+    Turns TF32 off for cuDNN convolutions and CUDA matmuls (PyTorch's
+    default lets cuDNN use it)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available "

@@ -1,5 +1,6 @@
 """Train a SHERF model (torch counterpart of ``sherf_tpu/cli/train.py``;
-reference train.py + train_*.sh), in one process on one device.
+reference train.py + train_*.sh), in one process on one device or in one
+process per device over a (data, rays) mesh.
 
 Examples:
   python -m sherf_tpu_torch.cli.train --outdir runs/syn --cfg synthetic --kimg 1
@@ -8,15 +9,30 @@ Examples:
   python -m sherf_tpu_torch.cli.train --outdir runs/gan --cfg synthetic_grid \\
       --batch 1 --kimg 3 --adv_weight 0.1 --d_reg_interval 16
   (add --device cpu to run on the CPU)
+
+Multi-process: start one process per rank with the same flags and its own
+``--process_id`` (or ``SHERF_COORDINATOR`` / ``SHERF_NUM_PROCESSES`` /
+``SHERF_PROCESS_ID``):
+  python -m sherf_tpu_torch.cli.train --outdir runs/mp --cfg synthetic_grid \
+      --batch 2 --mesh 2,1 --coordinator localhost:29500 --num_processes 2 \
+      --process_id 0        # and --process_id 1 in a second process
+Rank r takes ``cuda:(local rank % device count)``; the backend is NCCL when
+every rank of a host owns a GPU, gloo otherwise; ``LOCAL_WORLD_SIZE`` (the
+ranks of this host) is needed when the world has more ranks than this host
+has GPUs (``parallel/multihost.choose_backend``).
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from sherf_tpu_torch.cli.common import (
     add_model_flags, model_config_from_args, resolve_device, resolve_smpl)
 from sherf_tpu_torch.core.config import DataConfig, TrainConfig
+from sherf_tpu_torch.parallel.multihost import (maybe_initialize_distributed,
+                                                rank_device)
 
 
 # shipped dataset schedules (reference train.py:246-268)
@@ -57,7 +73,7 @@ def main(argv=None):
     p.add_argument("--fix_obs_view", type=lambda s: s.lower() == "true",
                    default=True)
     p.add_argument("--mesh", type=str, default=None,
-                   help="device mesh as 'data,rays'; only 1,1 is ported")
+                   help="rank mesh as 'data,rays', e.g. '2,2' over 4 ranks")
     p.add_argument("--adv_weight", type=float, default=0.0,
                    help="adversarial G-loss weight; >0 builds the dual "
                    "discriminator and runs Dmain + lazy-R1 Dreg phases "
@@ -67,18 +83,22 @@ def main(argv=None):
                    help="R1 gamma (reference train.py --gamma)")
     p.add_argument("--d_reg_interval", type=int, default=16)
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator; not ported")
+                   help="multi-process: the process group's address "
+                   "'host:port' (rank 0's host) or an init URL such as "
+                   "'file:///shared/rendezvous' (or set SHERF_COORDINATOR)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     add_model_flags(p)
     a = p.parse_args(argv)
 
     mesh_shape = tuple(int(x) for x in a.mesh.split(",")) if a.mesh else (1, 1)
-    if mesh_shape != (1, 1) or a.coordinator or (a.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "the sharded and multi-host training step is not ported "
-            "(ROADMAP Queue A item 6); run with --mesh 1,1 in one process")
     device = resolve_device(a.device)
+    # the process group before any other device work
+    proc, n_proc = maybe_initialize_distributed(
+        a.coordinator, a.num_processes, a.process_id, device=device)
+    device = rank_device(device)
+    if n_proc > 1:
+        print(f"multi-process: rank {proc} of {n_proc} on {device}")
 
     cfg = model_config_from_args(a)
     dd = dict(DATA_DEFAULTS[a.cfg])
@@ -110,9 +130,13 @@ def main(argv=None):
 
     from sherf_tpu_torch.train.loop import training_loop
 
-    training_loop(cfg, tcfg, dcfg, smpl, batch_source=batch_source,
-                  calibrate=a.calibrate_margin if a.calibrate_budgets else None,
-                  device=device)
+    try:
+        training_loop(cfg, tcfg, dcfg, smpl, batch_source=batch_source,
+                      calibrate=(a.calibrate_margin if a.calibrate_budgets
+                                 else None), device=device)
+    finally:
+        if n_proc > 1:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

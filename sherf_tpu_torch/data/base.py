@@ -10,9 +10,9 @@ data pipeline runs on CPU tensors of a CPU copy of the model
 (``SMPLModel.host``), never on the card, so loader threads issue no CUDA
 work.  Images are decoded and resized by the port's own numpy code
 (``data/jpeg.py``, ``data/png_read.py``, ``data/imgproc.py``): the machines
-the port runs on have no imaging package.  Rays take the numpy path
-(``get_rays_np``, ``near_far_aabb_np``); the JAX package's native host-ops
-library is not ported.
+the port runs on have no imaging package.  Rays come from the native
+host-ops library (``sherf_tpu_torch/native``) whenever it builds, else from
+numpy (``get_rays_np``, ``near_far_aabb_np``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from sherf_tpu_torch import native
 from sherf_tpu_torch.core.types import SHERFBatch, SMPLPose
+from sherf_tpu_torch.data.bmp import decode_bmp
 from sherf_tpu_torch.data.imgproc import fill_poly, resize_area, resize_nearest
 from sherf_tpu_torch.data.jpeg import decode_jpeg
 from sherf_tpu_torch.data.png_read import decode_png
@@ -65,14 +67,20 @@ def get_bound_2d_mask(bounds, K, pose, H, W) -> np.ndarray:
     return mask
 
 
-def read_image(path: str) -> np.ndarray:
-    """A JPEG or PNG file as ``imageio.v2.imread`` returns it (by its
-    content, not its name)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_image(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """A JPEG, BMP or PNG file's bytes as ``imageio.v2.imread`` returns
+    them (by their content, not the file's name)."""
     if data[:2] == b"\xff\xd8":
         return decode_jpeg(data, path)
+    if data[:2] == b"BM":
+        return decode_bmp(data, path)
     return decode_png(data, path)
+
+
+def read_image(path: str) -> np.ndarray:
+    """A JPEG, BMP or PNG file as ``imageio.v2.imread`` returns it."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
 
 
 def read_view(img_path: str, msk_path: str, white_back: bool):
@@ -119,10 +127,14 @@ def sample_rays_for_image(img, msk, K, R, T, bounds,
     img = img.copy()
     img[bound_mask != 1] = 1.0 if white_back else 0.0
 
-    ray_o, ray_d = get_rays_np(H, W, K, R, T)
-    ray_o = ray_o.reshape(-1, 3).astype(np.float32)
-    ray_d = ray_d.reshape(-1, 3).astype(np.float32)
-    near, far, mask_at_box = near_far_aabb_np(bounds, ray_o, ray_d)
+    rays = native.prepare_rays_native(H, W, K, R, T, bounds)
+    if rays is not None:
+        ray_o, ray_d, near, far, mask_at_box = rays
+    else:
+        ray_o, ray_d = get_rays_np(H, W, K, R, T)
+        ray_o = ray_o.reshape(-1, 3).astype(np.float32)
+        ray_d = ray_d.reshape(-1, 3).astype(np.float32)
+        near, far, mask_at_box = near_far_aabb_np(bounds, ray_o, ray_d)
     return img, ray_o, ray_d, near, far, mask_at_box, msk
 
 

@@ -1,6 +1,6 @@
-"""A PNG writer of the port's own: 8-bit RGB through the standard library's
-``zlib`` and ``struct`` (the machines the port runs on need no imaging
-package)."""
+"""A PNG writer of the port's own: 8-bit RGB or gray through the standard
+library's ``zlib`` and ``struct`` (the machines the port runs on need no
+imaging package)."""
 
 from __future__ import annotations
 
@@ -15,18 +15,22 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def png_bytes(rgb: np.ndarray) -> bytes:
-    """An (H, W, 3) uint8 image as the bytes of an 8-bit RGB PNG (no
-    filtering)."""
-    rgb = np.asarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"a PNG is made from (H, W, 3) uint8, got "
-                         f"{rgb.shape} {rgb.dtype}")
-    H, W = rgb.shape[:2]
+def png_bytes(img: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 image as the bytes of an 8-bit RGB PNG, or an
+    (H, W) / (H, W, 1) uint8 one as an 8-bit gray PNG (no filtering)."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    gray = img.ndim == 2
+    if img.dtype != np.uint8 or not (gray or (img.ndim == 3
+                                              and img.shape[2] == 3)):
+        raise ValueError(f"a PNG is made from (H, W, 3) or (H, W) uint8, got "
+                         f"{img.shape} {img.dtype}")
+    H, W = img.shape[:2]
     # each scanline starts with filter type 0 (none)
     raw = np.concatenate([np.zeros((H, 1), np.uint8),
-                          np.ascontiguousarray(rgb).reshape(H, W * 3)], axis=1)
-    header = struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)
+                          np.ascontiguousarray(img).reshape(H, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", W, H, 8, 0 if gray else 2, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
             + _chunk(b"IEND", b""))

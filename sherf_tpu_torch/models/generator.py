@@ -134,8 +134,14 @@ class SHERFGenerator(nn.Module):
     # ------------------------------------------------------------------
     def synthesis(self, ws: torch.Tensor, batch: SHERFBatch, smpl: SMPLModel,
                   noise_mode: str = "none", train: bool = False,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  flat_output: bool = False):
+        """``flat_output``: per-ray outputs, (B, N, 3) / (B, N), for the
+        sharded callers, whose batch holds a ray shard of each image rather
+        than an image rectangle (no SR head)."""
         cfg = self.cfg
+        if flat_output and cfg.use_sr_module:
+            raise ValueError("flat_output is incompatible with the SR module")
         B = batch.obs_img.shape[0]
         planes, obs_feat, ctx_big, ctx_obs, min_dhw, vol_feats, vol_coords = \
             self._banks(ws, batch, smpl, noise_mode, fused_modconv=not train)
@@ -146,6 +152,9 @@ class SHERFGenerator(nn.Module):
             ctx_big, ctx_obs, batch.vertices, batch.t_vertices,
             batch.t_bounds, batch.obs_K, batch.obs_R, batch.obs_T, smpl,
             ray_mask=batch.mask_at_box, train=train, generator=generator)
+        if flat_output:
+            return {"image_raw": rgb, "image_depth": depth,
+                    "weights_image": acc, "image": rgb}, diag
         H, W = batch.img.shape[1:3]
         out = {"image_raw": rgb.reshape(B, H, W, 3),
                "image_depth": depth.reshape(B, H, W),
@@ -194,11 +203,13 @@ class SHERFGenerator(nn.Module):
                 truncation_psi: float = 1.0,
                 truncation_cutoff: Optional[int] = None,
                 noise_mode: str = "none", train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                flat_output: bool = False):
         ws = self.mapping(batch.obs_img, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, batch, smpl, noise_mode=noise_mode,
-                              train=train, generator=generator)
+                              train=train, generator=generator,
+                              flat_output=flat_output)
 
 
 @torch.no_grad()

@@ -16,10 +16,14 @@ import torch
 from sherf_tpu_torch.train.train_state import TrainState
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
+def save_checkpoint(ckpt_dir: str, state: TrainState,
+                    step: Optional[int] = None) -> str:
+    """Write ``snapshot-<step>.pt`` (``step`` defaults to the state's; the
+    file holds the state's own step either way, as the JAX package's
+    names the directory by ``step`` and stores ``state.step``)."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(os.path.abspath(ckpt_dir),
-                        f"snapshot-{state.step:06d}.pt")
+    step = state.step if step is None else int(step)
+    path = os.path.join(os.path.abspath(ckpt_dir), f"snapshot-{step:06d}.pt")
     torch.save({"step": state.step,
                 "model": state.model.state_dict(),
                 "ema": state.ema,

@@ -1,8 +1,9 @@
 """Adversarial training phases (torch counterpart of
 ``sherf_tpu/train/gan.py``): the non-saturating softplus losses, lazy R1
 regularization and the three phases of a GAN step, Gmain, Dmain and Dreg
-(reference loss.py:150-165, 292-346; training_loop.py:243-256).  The
-sharded phases (``make_sharded_gan_steps``) are not ported.
+(reference loss.py:150-165, 292-346; training_loop.py:243-256), sharded
+over a (data, rays) mesh of ranks (``make_sharded_gan_steps``) or in one
+process (``make_gan_train_step``, the same phases on a one-rank mesh).
 
 D inputs are in [-1, 1]: the generator's ``image`` / ``image_raw`` already
 are; real images are ``batch.img * 2 - 1``, passed as both inputs.  The D
@@ -20,8 +21,9 @@ import torch.nn.functional as F
 
 from sherf_tpu_torch.core.config import TrainConfig
 from sherf_tpu_torch.core.diag import overflow_total
+from sherf_tpu_torch.parallel.mesh import Mesh, mean_metrics, reduce_gradients_
 from sherf_tpu_torch.train.loss import reconstruction_loss
-from sherf_tpu_torch.train.step import global_norm
+from sherf_tpu_torch.train.step import global_norm, render_images
 from sherf_tpu_torch.train.train_state import TrainState, ema_beta, ema_update
 
 # the D phases' optimizer state: the G state's type, without an EMA
@@ -130,16 +132,18 @@ def _step_d(d_state: DTrainState) -> None:
     d_state.apply_gradients()
 
 
-def make_gan_train_step(model, smpl, tcfg: TrainConfig,
-                        lpips_fn: Optional[Callable] = None):
-    """Returns (g_step, d_main_step, d_reg_step), each stepping its state
-    in place and returning its metrics (tensors on the device):
+def make_sharded_gan_steps(model, smpl, tcfg: TrainConfig, mesh: Mesh,
+                           lpips_fn: Optional[Callable] = None):
+    """Returns (g_step, d_main_step, d_reg_step) over a (data, rays) mesh
+    of ranks, each stepping its state in place and returning its metrics
+    (tensors on the device); ``batch`` is this rank's shard
+    (``shard_batch``) and each ``generator`` this rank's own:
 
       g_step(g_state, d_state, batch, generator): reconstruction loss +
         adv_weight * softplus(-D(fake)), Adam, EMA; ``generator`` draws the
         density noise.  D's parameters take no gradient.  Metrics: the
         loss dict with ``loss`` the total, ``g_adv``, ``overflow`` and
-        ``grad_norm`` (as ``make_train_step``).
+        ``grad_norm`` (as the train step).
       d_main_step(d_state, g_state, batch, generator): G re-rendered in
         train mode without a graph (``generator``: its density noise),
         then softplus(D(fake)) + softplus(-D(real)).  Metrics ``d_loss``,
@@ -149,15 +153,24 @@ def make_gan_train_step(model, smpl, tcfg: TrainConfig,
         caller runs it every ``d_reg_interval`` steps.
 
     Each D phase starts from cleared gradients, so nothing of another
-    phase reaches its Adam step."""
+    phase reaches its Adam step.  G renders the rank's ray shard and the
+    images are all-gathered over the ray group (``train/step.py``
+    ``render_images``), so D always sees full images and every rank of a
+    ray group computes the same D terms.  Gmain: the G gradients summed
+    over the world and divided by dm, as the train step's; Dmain and Dreg:
+    the D gradients averaged over the world (equal along the rays, a mean
+    over the data groups).  Metrics are averaged over the world,
+    ``overflow`` maximized.  On a one-rank mesh the collectives are
+    no-ops."""
     beta = ema_beta(tcfg.batch_size, tcfg.ema_kimg)
 
     def g_step(g_state: TrainState, d_state: DTrainState, batch,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
         d_model = d_state.model
         g_state.opt.zero_grad(set_to_none=True)
-        out, diag = model(batch, smpl, noise_mode="none", train=True,
-                          generator=generator)
+        out, batch, diag = render_images(model, smpl, mesh, batch,
+                                         noise_mode="none", train=True,
+                                         generator=generator)
         loss, metrics = reconstruction_loss(out, batch, tcfg,
                                             lpips_fn=lpips_fn)
         d_model.requires_grad_(False)
@@ -169,31 +182,43 @@ def make_gan_train_step(model, smpl, tcfg: TrainConfig,
         metrics.update(g_adv=adv, loss=total,
                        overflow=overflow_total(diag).to(total.device))
         total.backward()
+        reduce_gradients_(mesh, model.parameters(), 1.0 / mesh.data)
+        metrics = mean_metrics(mesh, {k: v.detach()
+                                      for k, v in metrics.items()})
         metrics["grad_norm"] = global_norm(
             [p.grad for p in model.parameters() if p.grad is not None])
         g_state.apply_gradients()
         ema_update(g_state.ema, model.named_parameters(), beta)
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     def d_main_step(d_state: DTrainState, g_state: TrainState, batch,
                     generator: torch.Generator) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
-            gen_out, _ = model(batch, smpl, noise_mode="none", train=True,
-                               generator=generator)
+            gen_out, _, _ = render_images(model, smpl, mesh, batch,
+                                          noise_mode="none", train=True,
+                                          generator=generator)
         real = batch.img * 2.0 - 1.0
         d_state.opt.zero_grad(set_to_none=True)
         loss, metrics = make_gan_losses(d_state.model)[1](
             gen_out, real, real, r1_gamma=tcfg.r1_gamma, do_r1=False)
         loss.backward()
+        reduce_gradients_(mesh, d_state.model.parameters(), 1.0 / mesh.size)
         _step_d(d_state)
-        return metrics
+        return mean_metrics(mesh, metrics)
 
     def d_reg_step(d_state: DTrainState, batch) -> Dict[str, torch.Tensor]:
         real = batch.img * 2.0 - 1.0
         d_state.opt.zero_grad(set_to_none=True)
         r1 = r1_penalty(d_state.model, real, real)
         (r1 * (tcfg.r1_gamma / 2.0) * float(tcfg.d_reg_interval)).backward()
+        reduce_gradients_(mesh, d_state.model.parameters(), 1.0 / mesh.size)
         _step_d(d_state)
-        return {"r1_penalty": r1.detach()}
+        return mean_metrics(mesh, {"r1_penalty": r1.detach()})
 
     return g_step, d_main_step, d_reg_step
+
+
+def make_gan_train_step(model, smpl, tcfg: TrainConfig,
+                        lpips_fn: Optional[Callable] = None):
+    """:func:`make_sharded_gan_steps` in one process (a one-rank mesh)."""
+    return make_sharded_gan_steps(model, smpl, tcfg, Mesh(1, 1), lpips_fn)

@@ -10,16 +10,21 @@ import os
 import resource
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 
 class StatsCollector:
-    def __init__(self, run_dir: str):
+    """``run_dir`` None keeps the means without writing them (the ranks
+    other than 0 of a multi-process run)."""
+
+    def __init__(self, run_dir: Optional[str]):
         self.run_dir = run_dir
-        os.makedirs(run_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(run_dir, "stats.jsonl"), "a")
+        self._jsonl = None
+        if run_dir is not None:
+            os.makedirs(run_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(run_dir, "stats.jsonl"), "a")
         self._sums: Dict[str, float] = defaultdict(float)
         self._counts: Dict[str, int] = defaultdict(int)
         self.start_time = time.time()
@@ -40,8 +45,9 @@ class StatsCollector:
         """Write the means since the last flush as one line and reset."""
         means = {k: self._sums[k] / max(self._counts[k], 1) for k in self._sums}
         rec = {"step": int(step), "time": time.time() - self.start_time, **means}
-        self._jsonl.write(json.dumps(rec) + "\n")
-        self._jsonl.flush()
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
         self._sums.clear()
         self._counts.clear()
         return means
@@ -56,4 +62,5 @@ class StatsCollector:
         self.report(res, prefix="Resources/")
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

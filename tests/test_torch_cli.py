@@ -72,9 +72,28 @@ def test_train_cli_passes_the_configs_jax_does(monkeypatch, tmp_path, argv):
 
 @pytest.mark.parametrize("extra", [["--mesh", "2,1"], ["--num_processes", "2"],
                                    ["--coordinator", "localhost:1234"]])
-def test_train_cli_rejects_what_is_not_ported(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        t_train_cli.main(["--outdir", str(tmp_path), "--device", "cpu"] + extra)
+def test_train_cli_rejects_what_is_not_ported(monkeypatch, tmp_path, extra):
+    """The distribution flags are ported (the runs over two processes are
+    in tests/test_torch_parallel.py).  In one process: ``--mesh`` reaches
+    the TrainConfig as in the JAX CLI; ``--num_processes`` without a
+    coordinator is one process, as in JAX; a coordinator without the world
+    size is refused before any connection is tried."""
+    calls = {}
+    monkeypatch.setattr(j_loop, "training_loop", _record(calls, "jax"))
+    monkeypatch.setattr(t_loop, "training_loop", _record(calls, "torch"))
+    for var in ("SHERF_COORDINATOR", "SHERF_NUM_PROCESSES",
+                "SHERF_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--outdir", str(tmp_path)] + extra
+    if extra[0] == "--coordinator":
+        with pytest.raises(ValueError, match="--num_processes"):
+            t_train_cli.main(argv + ["--device", "cpu"])
+        assert "torch" not in calls
+        return
+    j_train_cli.main(argv)
+    t_train_cli.main(argv + ["--device", "cpu"])
+    _same_config(calls["torch"][0][1], calls["jax"][0][1])
+    assert not torch.distributed.is_initialized()
 
 
 class _StubFlaxModel:

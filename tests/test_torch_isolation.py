@@ -26,7 +26,15 @@ EXPECTED = ("sherf_tpu_torch.cli.eval", "sherf_tpu_torch.cli.train",
             "sherf_tpu_torch.cli.render_demo",
             "sherf_tpu_torch.cli.debug_project",
             "sherf_tpu_torch.cli.visualizer", "sherf_tpu_torch.viz.renderer",
-            "sherf_tpu_torch.viz.widgets", "sherf_tpu_torch.viz.server")
+            "sherf_tpu_torch.viz.widgets", "sherf_tpu_torch.viz.server",
+            "sherf_tpu_torch.parallel.mesh",
+            "sherf_tpu_torch.parallel.multihost",
+            "sherf_tpu_torch.parallel.render",
+            "sherf_tpu_torch.parallel.launch",
+            "sherf_tpu_torch.parallel.reference",
+            "sherf_tpu_torch.native", "sherf_tpu_torch.data.bmp",
+            "sherf_tpu_torch.data.image_folder",
+            "sherf_tpu_torch.cli.dataset_tool")
 
 CHILD = textwrap.dedent(f"""
     import importlib, pkgutil, sys

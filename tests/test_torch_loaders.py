@@ -7,9 +7,11 @@ the repository):
     rays, near and far within 1e-6; what comes from the host SMPL forward
     (RenderPeople's and HuMMan's vertices, their bounds, HuMMan's pelvis
     corrected Th, the canonical body) within 2e-5, the two forwards' f32
-    rounding (tests/test_torch_e2e.py).  Then ``collate``.  The JAX
-    package's native ray path is patched out (``prepare_rays_native``
-    returns None), so both packages take numpy's rays;
+    rounding (tests/test_torch_e2e.py).  Then ``collate``.  Both
+    packages' native ray paths are patched out (``prepare_rays_native``
+    returns None), so both take numpy's rays; one more case holds the
+    items with both native paths on (the same ``host_ops.cpp`` built with
+    the same flags: bit-equal rays);
   * LPIPS: one random state dict in the ``lpips`` package's key layout,
     loaded by ``import_lpips_state_dict`` (JAX) and ``load_state_dict``
     (port): forward to rtol 1e-5, input gradients to relative L2 1e-3;
@@ -32,6 +34,7 @@ import torch
 from PIL import Image
 
 import sherf_tpu.native as j_native
+import sherf_tpu_torch.native as t_native
 from sherf_tpu.core.config import TrainConfig as JTrainConfig
 from sherf_tpu.data import DATASETS as J_DATASETS
 from sherf_tpu.data import collate as j_collate
@@ -61,11 +64,16 @@ SMPL_KEYS = ("vertices", "obs_vertices", "t_vertices", "t_world_bounds")
 SMPL_ATOL = 2e-5
 
 
+NATIVE_RAYS = (j_native.prepare_rays_native, t_native.prepare_rays_native)
+
+
 @pytest.fixture(autouse=True)
 def _numpy_rays(monkeypatch):
-    """Both packages on numpy's rays: the JAX package's native library
-    matches numpy only to a 0.999 mask agreement (tests/test_native.py)."""
+    """Both packages on numpy's rays: the native library matches numpy
+    only to a 0.999 mask agreement (tests/test_native.py)."""
     monkeypatch.setattr(j_native, "prepare_rays_native",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(t_native, "prepare_rays_native",
                         lambda *a, **k: None)
 
 
@@ -313,6 +321,26 @@ def test_loader_items_match_jax(name, trees, smpls):
                                rtol=0, atol=1e-6)
     if name in ("thuman", "zju"):
         np.testing.assert_array_equal(tb.pose.R.numpy(), np.asarray(jb.pose.R))
+
+
+@pytest.mark.parametrize("name", ["thuman", "zju"])
+def test_loader_items_with_native_rays_match_jax(name, trees, smpls,
+                                                 monkeypatch):
+    """Both packages on their native ray paths (as their loaders run
+    whenever the library builds): every key held as in
+    test_loader_items_match_jax, and the rays, near, far and box mask
+    bit-equal (the same source, flags and machine)."""
+    if j_native.lib() is None or t_native.lib() is None:
+        pytest.skip("no C++ toolchain: the native libraries did not build")
+    monkeypatch.setattr(j_native, "prepare_rays_native", NATIVE_RAYS[0])
+    monkeypatch.setattr(t_native, "prepare_rays_native", NATIVE_RAYS[1])
+    jd, td = _datasets(name, trees, smpls)
+    for k in (0, len(td) - 1):
+        ji, ti = jd[k], td[k]
+        _assert_item_equal(name, ji, ti)
+        assert ti["mask_at_box"].any()
+        for key in ("ray_o", "ray_d", "near", "far", "mask_at_box"):
+            np.testing.assert_array_equal(ti[key], ji[key], err_msg=key)
 
 
 def test_zju_items_with_bounds_partly_off_the_image(trees, smpls):
