@@ -93,6 +93,21 @@ with random weights drawn from a seeded ``torch.Generator``:
   * the image-folder dataset tool (phase ``dataset_tool``): a tree of
     PNG / JPEG / BMP written here packed at 256x256 center-crop and read
     back through ``ImageFolderDataset``;
+  * StyleGAN3 and ADA (phase ``sg3_ada``, after ``dataset_tool``): an
+    ``SG3Generator`` at StyleGAN3-T's published 512 widths (z / w 512, 14
+    layers, channel_base 32768, channel_max 512, 2 mapping layers; random
+    weights from seed 0, f32, TF32 off, batch 4): forward ms (median of
+    5), peak memory, finiteness; card against CPU (relative L2 <= 1e-5) on
+    the tests' small configuration whole and on layers L0, L13 and L14 of
+    the 512 network, fed the inputs the card's forward gave them; the
+    ``AugmentPipe`` at 512, batch 32, with the reference's ``bgc`` knobs
+    plus ``imgfilter``, ``noise`` and ``cutout`` at p = 0.6: ms a batch
+    (median of 10), card against CPU with the card's draws replayed (max
+    abs <= 1e-4), p = 0 the identity without ``imgfilter`` (<= 1e-4; the
+    JAX pipe's band filter is not the identity at p = 0), xflip alone exactly a
+    mirror or the identity per image; ``dataset_tool`` packing an
+    enlarging transform and the zip read back; an Adam7 PNG written here
+    read equal to the non-interlaced file of the same pixels;
   * TF32 (phase ``tf32``): the CLIs' f32 model at the frame's scene run
     with PyTorch's TF32 default and with TF32 off (one render's PSNR, one
     train step's loss and gradients, InceptionV3 features), then every
@@ -2601,6 +2616,256 @@ def dataset_tool_phase(np, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# StyleGAN3 synthesis, the ADA pipe and the image inputs added with them
+
+# StyleGAN3-T at 512 (NVlabs/stylegan3 stylegan3-t-afhqv2-512x512.pkl)
+SG3_512 = dict(z_dim=512, w_dim=512, img_resolution=512, img_channels=3,
+               num_layers=14, channel_base=32768, channel_max=512)
+# the tests' small configuration (tests/test_torch_stylegan3.py)
+SG3_SMALL = dict(z_dim=16, w_dim=32, img_resolution=32, img_channels=3,
+                 num_layers=4, channel_base=1024, channel_max=32)
+SG3_BATCH = 4
+SG3_ITERS = 5
+SG3_REL_L2 = 1e-5
+# the reference's bgc knobs (training/augment.py augpipe_specs) and the
+# filter and corruption groups
+ADA_KNOBS = dict(xflip=1, rotate90=1, xint=1, scale=1, rotate=1, aniso=1,
+                 xfrac=1, brightness=1, contrast=1, lumaflip=1, hue=1,
+                 saturation=1, imgfilter=1, noise=1, cutout=1)
+ADA_RES = 512
+ADA_BATCH = 32
+ADA_P = 0.6
+ADA_ITERS = 10
+ADA_MAX_ABS = 1e-4
+
+
+def _png_rgb(img, interlace):
+    """An (H, W, 3) uint8 image as an RGB PNG, filter type None, Adam7-
+    interlaced if asked."""
+    import struct
+    import zlib
+    H_, W_ = img.shape[:2]
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+              (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)) if interlace \
+        else ((0, 0, 1, 1),)
+    rows = []
+    for x0, y0, dx, dy in passes:
+        sub = img[y0::dy, x0::dx]
+        if sub.size:
+            rows += [b"\x00" + r.tobytes()
+                     for r in sub.reshape(sub.shape[0], -1)]
+    raw = b"".join(rows)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", W_, H_, 8, 2, 0, 0, int(interlace)))
+        + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def sg3_ada(torch, np, dev, out_dir):
+    """Phase ``sg3_ada`` (see the module docstring).  The layer checks run
+    the card's captured inputs at batch 1 on both devices: StyleGAN3's
+    modulated conv normalises the styles over the whole batch, so a
+    one-image CPU run is held to a one-image card run of the same layer."""
+    import copy
+
+    from sherf_tpu_torch.cli import dataset_tool
+    from sherf_tpu_torch.data.image_folder import ImageFolderDataset
+    from sherf_tpu_torch.data.png_read import decode_png
+    from sherf_tpu_torch.eval.png import png_bytes
+    from sherf_tpu_torch.features.augment import (AugmentPipe, Draws,
+                                                  ReplayDraws)
+    from sherf_tpu_torch.features.stylegan3 import SG3Generator
+
+    out = {}
+    # ---- StyleGAN3-T at 512 on the card
+    g = SG3Generator(**SG3_512, device=dev,
+                     generator=torch.Generator().manual_seed(0)).eval()
+    net = g.synthesis
+    held = (net.layer_names[0], net.layer_names[-2], net.layer_names[-1])
+    seen = {}
+
+    def capture(name):
+        def hook(_mod, args, _out):
+            if name not in seen:
+                seen[name] = (args[0].detach().clone(),
+                              args[1].detach().clone())
+        return hook
+    hooks = [getattr(net, n).register_forward_hook(capture(n)) for n in held]
+    z = torch.randn(SG3_BATCH, SG3_512["z_dim"],
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    with torch.no_grad():
+        for _ in range(SG3_ITERS + 1):
+            t = time.perf_counter()
+            img = g(z)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+    for h in hooks:
+        h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(img).all())
+    # one more forward: each layer's device ms (CUDA events around it),
+    # then one under the profiler (busy share, the top operations)
+    events = {}
+
+    def bracket(name):
+        def pre(_mod, _args):
+            events[name] = [torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True)]
+            events[name][0].record()
+
+        def post(_mod, _args, _out):
+            events[name][1].record()
+        return pre, post
+    hooks = []
+    for name in ["input"] + net.layer_names:
+        pre, post = bracket(name)
+        mod = getattr(net, name)
+        hooks += [mod.register_forward_pre_hook(pre),
+                  mod.register_forward_hook(post)]
+    with torch.no_grad():
+        g(z)
+        torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    layer_ms = {n: a.elapsed_time(b) for n, (a, b) in events.items()}
+    with torch.no_grad():
+        prof = profiled(lambda: g(z), torch, NONE)
+    res = SG3_512["img_resolution"]
+    check(img.shape == (SG3_BATCH, 3, res, res) and finite,
+          f"sg3_ada: 512 image {tuple(img.shape)}, finite {finite}")
+    layers = {}
+    with torch.no_grad():
+        for name in held:
+            x, w = seen[name]
+            layer = getattr(net, name)
+            want = layer(x[:1], w[:1])
+            got = copy.deepcopy(layer).cpu()(x[:1].cpu(), w[:1].cpu())
+            layers[name] = _rel_l2(got, want.cpu())
+            check(layers[name] <= SG3_REL_L2, f"sg3_ada: layer {name} card "
+                  f"vs CPU relative L2 {layers[name]} > {SG3_REL_L2}")
+    out["sg3_512"] = {
+        "config": SG3_512, "batch": SG3_BATCH,
+        "params": sum(p.numel() for p in g.parameters()),
+        "forward_ms_median": statistics.median(ms[1:]),
+        "forward_ms": ms, "first_forward_ms": ms[0],
+        "peak_mem_gb": peak / 2 ** 30, "finite": finite,
+        "image_abs_mean": float(img.abs().mean()),
+        "layers_vs_cpu_rel_l2": layers, "layer_ms": layer_ms,
+        "profile": {k: prof[k] for k in ("wall_ms_profiled",
+                                         "device_busy_ms",
+                                         "device_idle_share",
+                                         "kernel_launches", "top_ops")}}
+    del g, net, seen, img
+    torch.cuda.empty_cache()
+
+    # ---- the small configuration whole, card against CPU
+    small = SG3Generator(**SG3_SMALL,
+                         generator=torch.Generator().manual_seed(2)).eval()
+    zs = torch.randn(2, SG3_SMALL["z_dim"],
+                     generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        ref = small(zs)
+        got = small.to(dev)(zs.to(dev)).cpu()
+    out["sg3_small_vs_cpu_rel_l2"] = _rel_l2(got, ref)
+    check(out["sg3_small_vs_cpu_rel_l2"] <= SG3_REL_L2,
+          f"sg3_ada: small generator card vs CPU relative L2 "
+          f"{out['sg3_small_vs_cpu_rel_l2']}")
+
+    # ---- the ADA pipe at 512, batch 32
+    rng = np.random.RandomState(4)
+    yy, xx = np.mgrid[0:ADA_RES, 0:ADA_RES] / ADA_RES
+    ph = rng.rand(ADA_BATCH, 3, 3) * 8
+    imgs = np.sin(ph[..., 0, None, None] * xx + ph[..., 1, None, None] * yy
+                  + ph[..., 2, None, None]) * 0.8 \
+        + rng.randn(ADA_BATCH, 3, ADA_RES, ADA_RES) * 0.05
+    x = torch.from_numpy(imgs.astype(np.float32)).to(dev)
+    pipe = AugmentPipe(**ADA_KNOBS)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ms = []
+    for _ in range(ADA_ITERS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe(x, ADA_P, generator=gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    rec = Draws(torch.Generator(device=dev).manual_seed(6), record=True)
+    card = pipe(x, ADA_P, draws=rec).cpu()
+    replay = ReplayDraws([(k, v.cpu()) for k, v in rec.record])
+    cpu = pipe(x.cpu(), ADA_P, draws=replay)
+    vs_cpu = float((card - cpu).abs().max())
+    check(replay.exhausted and vs_cpu <= ADA_MAX_ABS,
+          f"sg3_ada: augment card vs CPU max abs {vs_cpu}")
+    # at p = 0 every gate is off; the four-band filter still applies its
+    # fixed sum of separable bands, which is not the identity (a property
+    # of the JAX pipe, whose own identity test leaves imgfilter out)
+    no_filter = AugmentPipe(**{k: v for k, v in ADA_KNOBS.items()
+                               if k != "imgfilter"})
+    p0 = float((no_filter(x, 0.0, generator=gen) - x).abs().max())
+    check(p0 <= ADA_MAX_ABS, f"sg3_ada: augment at p = 0 moved {p0}")
+    p0_filter = float((pipe(x, 0.0, generator=gen) - x).abs().max())
+    flip = AugmentPipe(xflip=1)(x, 1.0, generator=gen)
+    mirrored = [bool(torch.equal(flip[i], x[i].flip(-1)))
+                for i in range(ADA_BATCH)]
+    same = [bool(torch.equal(flip[i], x[i])) for i in range(ADA_BATCH)]
+    check(all(m or s_ for m, s_ in zip(mirrored, same)),
+          "sg3_ada: an xflip image is neither a mirror nor the identity")
+    out["augment_512"] = {
+        "knobs": sorted(ADA_KNOBS), "res": ADA_RES, "batch": ADA_BATCH,
+        "p": ADA_P,
+        "ms_median": statistics.median(ms[1:]), "ms": ms,
+        "draws": len(rec.record), "vs_cpu_max_abs": vs_cpu,
+        "p0_max_abs": p0, "p0_with_imgfilter_max_abs": p0_filter,
+        "xflip_mirrored": sum(mirrored),
+        "xflip_identity": sum(same)}
+    del x, card, cpu, rec, flip
+    torch.cuda.empty_cache()
+
+    # ---- dataset_tool enlarging; an Adam7 PNG
+    src = os.path.join(out_dir, "small")
+    os.makedirs(src)
+    for i, (h, w) in enumerate(((48, 64), (90, 60), (100, 100))):
+        with open(os.path.join(src, f"s{i}.png"), "wb") as f:
+            f.write(png_bytes(rng.randint(0, 256, (h, w, 3)).astype(
+                np.uint8)))
+    dest = os.path.join(out_dir, "enlarged.zip")
+    dataset_tool.main(["--source", src, "--dest", dest, "--resolution",
+                       "256x192", "--transform", "center-crop-wide"])
+    tree = ImageFolderDataset(src)
+    packed = ImageFolderDataset(dest)
+    try:
+        check(len(packed) == len(tree) == 3, "sg3_ada: enlarged zip items")
+        for k in range(3):
+            want = dataset_tool.transform_image(tree[k][0],
+                                                "center-crop-wide", 256, 192)
+            check(packed[k][0].shape == (192, 256, 3)
+                  and np.array_equal(packed[k][0], want),
+                  f"sg3_ada: enlarged item {k} differs from its source")
+    finally:
+        tree.close()
+        packed.close()
+    img = rng.randint(0, 256, (509, 511, 3)).astype(np.uint8)
+    inter, plain = _png_rgb(img, True), _png_rgb(img, False)
+    t = time.perf_counter()
+    got = decode_png(inter, "adam7.png")
+    adam7_ms = (time.perf_counter() - t) * 1e3
+    check(np.array_equal(got, decode_png(plain)) and np.array_equal(got, img),
+          "sg3_ada: the Adam7 PNG differs from the non-interlaced one")
+    out["host"] = {"enlarged_items": 3, "enlarged_to": "256x192",
+                   "adam7_shape": list(img.shape), "adam7_decode_ms": adam7_ms}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # multi-process training: two ranks on the one card
 
 # the meshes of phase ``parallel`` and their global batches
@@ -3072,6 +3337,12 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as dt_dir:
         phase("dataset_tool", t0, **dataset_tool_phase(np, dt_dir))
+
+    # ---- sg3_ada: StyleGAN3-T at 512, the ADA pipe, the new image inputs
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as sg_dir:
+        phase("sg3_ada", t0, **sg3_ada(torch, np, dev, sg_dir))
+    torch.cuda.empty_cache()
 
     # ---- tf32: PyTorch's default against full f32, and the CLIs' repair --
     t0 = time.perf_counter()

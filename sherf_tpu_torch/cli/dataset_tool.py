@@ -10,10 +10,12 @@ with a ``dataset.json`` labels manifest.  Output: a flat zip of PNGs named
       --dest data.zip --resolution 256x256 --transform center-crop
 
 Transforms as in the JAX tool: ``--resolution WxH`` with ``--transform
-{copy,center-crop,center-crop-wide}``.  Images are resized with the port's
-area resize (``cv2.INTER_AREA``'s arithmetic, rounded as cv2 rounds uint8;
-shrinking only) and written by the port's PNG writer, so the zip's bytes
-differ from the JAX tool's while its names, labels and pixels match.
+{copy,center-crop,center-crop-wide}``.  Images are resized as
+``cv2.resize(..., interpolation=cv2.INTER_AREA)`` resizes uint8 images (the
+port's area resize when both axes shrink, cv2's fixed-point linear pass
+with area coefficients when either grows) and written by the port's PNG
+writer, so the zip's bytes differ from the JAX tool's while its names,
+labels and pixels match.
 """
 
 from __future__ import annotations
@@ -29,16 +31,58 @@ from sherf_tpu_torch.data.imgproc import resize_area
 from sherf_tpu_torch.eval.png import png_bytes
 
 
+_COEF_SCALE = 2048      # cv2's INTER_RESIZE_COEF_SCALE (11 fraction bits)
+
+
+def _area_linear_coeffs(n: int, m: int):
+    """cv2's linear-resize taps for ``n`` source samples -> ``m`` in area
+    mode: source index ``s`` of each output, its two weights as cv2's
+    fixed-point shorts, and the first output whose right tap would fall
+    off the source (from there on the sample is copied)."""
+    inv = m / n
+    d = np.arange(m)
+    s = np.floor(d * (1.0 / inv)).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    off = s + 1 >= n
+    edge = int(np.argmax(off)) if off.any() else m
+    f[s >= n - 1] = 0
+    s = np.minimum(s, n - 1)
+    w = np.stack([(np.float32(1) - f) * np.float32(_COEF_SCALE),
+                  f * np.float32(_COEF_SCALE)], -1)
+    return s, np.rint(w).astype(np.int64), edge
+
+
+def _enlarge_area_u8(img: np.ndarray, size) -> np.ndarray:
+    """What ``cv2.INTER_AREA`` does to a uint8 image when either axis
+    grows: a linear resize whose taps are the area-mode coefficients of
+    ``_area_linear_coeffs``.  The horizontal pass is exact integer
+    arithmetic; the vertical pass rounds as cv2's vector code does:
+    ``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16)``, then ``+2 >> 2``."""
+    h, w = img.shape[:2]
+    W, H = size
+    src = img.reshape(h, w, -1).astype(np.int64)
+    sx, ax, edge = _area_linear_coeffs(w, W)
+    sy, by, _ = _area_linear_coeffs(h, H)
+    rows = (src[:, sx] * ax[None, :, 0, None]
+            + src[:, np.minimum(sx + 1, w - 1)] * ax[None, :, 1, None])
+    rows[:, edge:] = src[:, sx[edge:]] * _COEF_SCALE
+    r0, r1 = rows[sy], rows[np.minimum(sy + 1, h - 1)]
+    b0, b1 = by[:, 0, None, None], by[:, 1, None, None]
+    out = (((r0 >> 4) * b0) >> 16) + (((r1 >> 4) * b1) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8).reshape(
+        (H, W) + img.shape[2:])
+
+
 def resize_area_u8(img: np.ndarray, size) -> np.ndarray:
     """``cv2.resize(img, size, interpolation=cv2.INTER_AREA)`` for a uint8
-    (H, W, C) image shrunk to ``size = (width, height)``: the area average
-    in float, rounded half to even as cv2 rounds, but half up at an exact
-    2x2 shrink, where cv2 takes ``(a + b + c + d + 2) >> 2``.  A one-channel
-    image keeps its channel axis (cv2 drops it)."""
+    (H, W, C) image resized to ``size = (width, height)``.  Shrinking both
+    axes: the area average in float, rounded half to even as cv2 rounds,
+    but half up at an exact 2x2 shrink, where cv2 takes ``(a + b + c + d +
+    2) >> 2``.  Growing either axis: :func:`_enlarge_area_u8`.  A
+    one-channel image keeps its channel axis (cv2 drops it)."""
     if size[0] > img.shape[1] or size[1] > img.shape[0]:
-        raise ValueError(f"a {img.shape[1]}x{img.shape[0]} crop cannot be "
-                         f"resized to {size[0]}x{size[1]}: the area resize "
-                         f"only shrinks")
+        return _enlarge_area_u8(img, size)
     out = resize_area(img.astype(np.float32), size)
     if img.shape[0] == 2 * out.shape[0] and img.shape[1] == 2 * out.shape[1]:
         out = np.floor(out + 0.5)

@@ -11,8 +11,11 @@ flax path joined with '.', with the leaf renamed and re-laid-out:
           StyleGAN2 ``const`` (H, W, C)       -> (C, H, W)
           BatchNorm / LayerNorm ``scale``     -> ``weight``
   batch_stats ``mean`` / ``var``              -> ``running_mean`` / ``running_var``
-  noise / ema buffers (``noise_const``, ``w_avg``) and sparse-conv weights
+  noise / ema / buffers (``noise_const``, ``w_avg``, StyleGAN3's
+  ``transform``, ``magnitude_ema``) and sparse-conv weights
   (3, 3, 3, Ci, Co)                           -> unchanged
+  a tuple leaf ``a_b`` of two arrays          -> ``a`` and ``b``
+  (StyleGAN3's ``freqs_phases``)
 
 Takes numpy arrays only (call ``jax.device_get`` first), so it imports no
 JAX.  Either the full variables dict ({"params": ..., "batch_stats": ...})
@@ -26,13 +29,20 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_COLLECTIONS = ("params", "batch_stats", "noise", "ema")
+_COLLECTIONS = ("params", "batch_stats", "noise", "ema", "buffers")
 
 
 def _flatten(tree: Mapping, prefix=()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _flatten(v, prefix + (str(k),))
+        elif isinstance(v, (tuple, list)):
+            parts = str(k).split("_")
+            if len(parts) != len(v):
+                raise ValueError(f"tuple leaf {k!r} of {len(v)} arrays: its "
+                                 f"name does not name each of them")
+            for part, leaf in zip(parts, v):
+                yield prefix + (part,), np.asarray(leaf)
         else:
             yield prefix + (str(k),), np.asarray(v)
 

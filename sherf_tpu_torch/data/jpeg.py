@@ -13,11 +13,17 @@ What it reproduces of libjpeg-turbo's defaults:
   * table-driven YCbCr -> RGB (``jdcolor.c``: ``SCALEBITS`` 16,
     ``ONE_HALF`` rounding).
 
-Supported: 8-bit Huffman-coded sequential files (SOF0 / SOF1), gray or
-YCbCr, chroma at 4:4:4, 4:2:2 or 4:2:0, restart markers, interleaved and
-non-interleaved scans.  Progressive, arithmetic-coded, lossless,
-hierarchical, 12-bit, RGB- or CMYK-coded files and other samplings raise
-``ValueError`` naming the file.
+Supported: 8-bit Huffman-coded sequential (SOF0 / SOF1) and progressive
+(SOF2) files, gray or YCbCr, chroma at 4:4:4, 4:2:2 or 4:2:0, restart
+markers, interleaved and non-interleaved scans in any component order.  A
+progressive file's scans (DC first and refinement, AC first with
+end-of-band runs, AC refinement; ``jdphuff.c``) leave the same
+coefficients a baseline file holds, which then take the same IDCT.  A
+progressive file that leaves any of the first ten zigzag coefficients of
+a component short of its last bit would get libjpeg's block smoothing and
+raises instead.  Arithmetic-coded, lossless, hierarchical, 12-bit, RGB- or
+CMYK-coded files and other samplings (4:1:1, 4:4:0) raise ``ValueError``
+naming the file.
 
 Dequantisation, the IDCT, upsampling and colour conversion run over all
 blocks at once; only the Huffman decode is a Python loop.
@@ -37,7 +43,7 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-_SOF_NAMES = {0xC1: None, 0xC0: None, 0xC2: "progressive",
+_SOF_NAMES = {0xC1: None, 0xC0: None, 0xC2: None,
               0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
               0xC7: "hierarchical", 0xC9: "arithmetic-coded",
               0xCA: "arithmetic-coded progressive", 0xCB: "arithmetic-coded",
@@ -46,10 +52,17 @@ _SOF_NAMES = {0xC1: None, 0xC0: None, 0xC2: "progressive",
               0xCF: "arithmetic-coded hierarchical"}
 
 
+# libjpeg-turbo's SAVED_COEFS: block smoothing looks at zigzag 0..9
+_SMOOTHED_COEFS = 10
+
+
 class _Component:
     def __init__(self, cid, h, v, tq):
         self.id, self.h, self.v, self.tq = cid, h, v, tq
         self.coef = None          # (blocks_y, blocks_x, 64) int32, zigzag
+        # progressive: the Al of the last scan of each coefficient, -1 if
+        # none (libjpeg's coef_bits)
+        self.coef_bits = [-1] * 64
 
 
 def _huffman_lut(counts, symbols) -> List[int]:
@@ -162,6 +175,127 @@ def _decode_scan(segs, order, mcu_blocks, restart, dc_luts, ac_luts,
     if b0 < n_blocks:
         raise ValueError(f"{path}: scan ends after {b0} of {n_blocks} blocks")
     return offs, vals
+
+
+def _huff(lut, w, pos, path):
+    e = lut[(w[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+    if not e:
+        raise ValueError(f"{path}: bad Huffman code")
+    return pos + (e >> 8), e & 0xFF
+
+
+def _bits(w, pos, n):
+    return (w[pos >> 3] >> (32 - (pos & 7) - n)) & ((1 << n) - 1)
+
+
+def _extend(v, s):
+    return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+
+
+def _decode_progressive_scan(segs, order, mcu_blocks, restart, coef, luts,
+                             n_slots, ss, se, ah, al, path):
+    """Decode one progressive scan (``jdphuff.c``) into ``coef``, a flat
+    list of the scan's components' zigzag coefficients, in place.
+    ``order`` / ``mcu_blocks`` / ``restart`` as :func:`_decode_scan`;
+    ``luts`` per slot: the DC table for a DC first scan, the AC table for
+    an AC scan, unused for a DC refinement."""
+    n_blocks = len(order)
+    per_seg = restart * mcu_blocks if restart else n_blocks
+    p1, m1 = 1 << al, -(1 << al)
+    b0 = 0
+    for seg in segs:
+        if b0 >= n_blocks:
+            break
+        w = _words(seg)
+        limit = len(seg) * 8 + 16
+        pred = [0] * n_slots
+        eobrun = 0
+        pos = 0
+        for slot, base in order[b0:b0 + per_seg]:
+            if ss == 0 and ah == 0:             # DC first
+                pos, s = _huff(luts[slot], w, pos, path)
+                if s:
+                    pred[slot] += _extend(_bits(w, pos, s), s)
+                    pos += s
+                coef[base] = pred[slot] << al
+            elif ss == 0:                       # DC refinement
+                if _bits(w, pos, 1):
+                    coef[base] |= p1
+                pos += 1
+            elif ah == 0:                       # AC first
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                lut = luts[slot]
+                k = ss
+                while k <= se:
+                    pos, rs = _huff(lut, w, pos, path)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        if k > se:
+                            raise ValueError(f"{path}: bad AC run")
+                        coef[base + k] = _extend(_bits(w, pos, s), s) << al
+                        pos += s
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += _bits(w, pos, r)
+                            pos += r
+                        eobrun -= 1
+                        break
+                    k += 1
+            else:                               # AC refinement
+                lut = luts[slot]
+                k = ss
+                if not eobrun:
+                    while k <= se:
+                        pos, rs = _huff(lut, w, pos, path)
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            s = p1 if _bits(w, pos, 1) else m1
+                            pos += 1
+                        elif r != 15:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += _bits(w, pos, r)
+                                pos += r
+                            break
+                        # past r zero coefficients (appending a correction
+                        # bit to each nonzero one) to the new coefficient
+                        while k <= se:
+                            c = coef[base + k]
+                            if c:
+                                if _bits(w, pos, 1) and not c & p1:
+                                    coef[base + k] = c + (p1 if c >= 0 else m1)
+                                pos += 1
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                        if s:
+                            if k > se:
+                                raise ValueError(f"{path}: bad AC run")
+                            coef[base + k] = s
+                        k += 1
+                if eobrun:
+                    # the rest of the band: correction bits only
+                    while k <= se:
+                        c = coef[base + k]
+                        if c:
+                            if _bits(w, pos, 1) and not c & p1:
+                                coef[base + k] = c + (p1 if c >= 0 else m1)
+                            pos += 1
+                        k += 1
+                    eobrun -= 1
+            if pos > limit:
+                raise ValueError(f"{path}: entropy-coded data too short")
+        b0 += per_seg
+    if b0 < n_blocks:
+        raise ValueError(f"{path}: scan ends after {b0} of {n_blocks} blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +450,7 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
     comps: List[_Component] = []
     restart = 0
     H = W = 0
+    progressive = False
     pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF and data[pos + 1] == 0xFF:
@@ -336,6 +471,7 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
             if kind is not None:
                 raise ValueError(f"{path}: {kind} JPEG is not supported "
                                  f"(baseline sequential only)")
+            progressive = m == 0xC2
             prec, H, W, nc = struct.unpack(">BHHB", seg[:6])
             if prec != 8:
                 raise ValueError(f"{path}: {prec}-bit JPEG is not supported "
@@ -377,20 +513,34 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
             if not comps:
                 raise ValueError(f"{path}: scan before frame header")
             ns = seg[0]
+            ss, se, a = seg[1 + 2 * ns:4 + 2 * ns]
+            spec = (ss, se, a >> 4, a & 15) if progressive else None
+            # the tables a scan reads: both (sequential), DC (a progressive
+            # DC first scan), AC (a progressive AC scan), none (DC refine)
+            need_dc = not progressive or (ss == 0 and a >> 4 == 0)
+            need_ac = not progressive or ss > 0
             scomps = []
             for i in range(ns):
                 cid, t = seg[1 + 2 * i], seg[2 + 2 * i]
                 comp = next(c for c in comps if c.id == cid)
-                if (t >> 4) not in dc_tabs or (t & 15) not in ac_tabs:
+                if (need_dc and (t >> 4) not in dc_tabs) or (
+                        need_ac and (t & 15) not in ac_tabs):
                     raise ValueError(f"{path}: missing Huffman table")
-                scomps.append((comp, dc_tabs[t >> 4], ac_tabs[t & 15]))
-            pos = _read_scan(data, nxt, comps, scomps, restart, H, W, path)
+                scomps.append((comp, dc_tabs.get(t >> 4),
+                               ac_tabs.get(t & 15)))
+            pos = _read_scan(data, nxt, comps, scomps, restart, H, W, path,
+                             spec)
             continue
         pos = nxt
 
     if len(comps) not in (1, 3):
         raise ValueError(f"{path}: {len(comps)}-component JPEG is not "
                          f"supported")
+    if progressive and all(c.coef_bits[0] >= 0 for c in comps) and any(
+            any(c.coef_bits[1:_SMOOTHED_COEFS]) for c in comps):
+        raise ValueError(f"{path}: progressive JPEG whose scans leave low "
+                         f"AC coefficients unrefined (libjpeg's block "
+                         f"smoothing) is not supported")
     planes = _planes(comps, qt, H, W, path)
     if len(comps) == 1:
         return planes[0]
@@ -407,7 +557,11 @@ def _geometry(comps, H, W):
     return hmax, vmax, _ceil(W, 8 * hmax), _ceil(H, 8 * vmax)
 
 
-def _read_scan(data, start, comps, scomps, restart, H, W, path):
+def _read_scan(data, start, comps, scomps, restart, H, W, path,
+               spec=None):
+    """Decode the scan at ``start`` into its components' ``coef``; ``spec``
+    is a progressive scan's (Ss, Se, Ah, Al), None for a sequential one.
+    Returns the offset of the marker after the scan."""
     hmax, vmax, mcux, mcuy = _geometry(comps, H, W)
     for c in comps:
         if c.coef is None:
@@ -439,12 +593,27 @@ def _read_scan(data, start, comps, scomps, restart, H, W, path):
                             order.append((s, bases[s] + (
                                 (my * c.v + v) * row + mx * c.h + h) * 64))
     segs, end = _segments(data, start)
-    offs, vals = _decode_scan(segs, order, mcu_blocks, restart,
-                              [t for _, t, _ in scomps],
-                              [t for _, _, t in scomps], len(scomps), path)
     flat = np.concatenate([c.coef.reshape(-1) for c, _, _ in scomps])
-    if offs:
-        flat[np.asarray(offs, np.int64)] = np.asarray(vals, np.int64)
+    if spec is None:
+        offs, vals = _decode_scan(segs, order, mcu_blocks, restart,
+                                  [t for _, t, _ in scomps],
+                                  [t for _, _, t in scomps], len(scomps),
+                                  path)
+        if offs:
+            flat[np.asarray(offs, np.int64)] = np.asarray(vals, np.int64)
+    else:
+        ss, se, ah, al = spec
+        if ss > se or se > 63 or (ss == 0 and se != 0) or (
+                ss > 0 and len(scomps) != 1):
+            raise ValueError(f"{path}: bad progressive scan {spec}")
+        coef = flat.tolist()
+        _decode_progressive_scan(
+            segs, order, mcu_blocks, restart, coef,
+            [ac if ss else dc for _, dc, ac in scomps], len(scomps),
+            ss, se, ah, al, path)
+        flat = np.asarray(coef, np.int32)
+        for c, _, _ in scomps:
+            c.coef_bits[ss:se + 1] = [al] * (se - ss + 1)
     for s, (c, _, _) in enumerate(scomps):
         c.coef = flat[bases[s]:bases[s] + c.coef.size].reshape(c.coef.shape)
     return end

@@ -5,12 +5,13 @@
     (H, W, 4) as uint8;
   * palette images expanded to RGB (H, W, 3) through ``PLTE``, with or
     without ``tRNS`` (imageio drops the alpha), at 1, 2, 4 or 8 bits;
-  * 16-bit gray as uint16; 16-bit gray + alpha, RGB and RGBA as uint8
-    holding each sample's high byte (PIL keeps 8 bits for those);
+  * 16-bit gray as uint16; 16-bit RGB and RGBA as uint8 holding each
+    sample's high byte (PIL keeps 8 bits for those); 16-bit gray + alpha
+    as such an RGBA (H, W, 4), the gray in R, G and B;
   * 1-bit gray as bool; 2- and 4-bit gray scaled to 0..255 as uint8.
 
-Filter types 0-4.  Interlaced (Adam7) files raise ``ValueError`` naming
-the file: they are never decoded wrongly.
+Filter types 0-4, non-interlaced and interlaced (Adam7: each of the seven
+passes unfiltered as an image of its own, then scattered into place).
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import zlib
 import numpy as np
 
 _SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples a pixel
+# Adam7 passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _unfilter(raw: np.ndarray, H: int, row_bytes: int, bpp: int,
@@ -76,6 +80,22 @@ def _unfilter(raw: np.ndarray, H: int, row_bytes: int, bpp: int,
     return S[2 + xs + ys, 1 + ys].astype(np.uint8).reshape(H, row_bytes)
 
 
+def _samples(rows: np.ndarray, H: int, W: int, spp: int,
+             depth: int) -> np.ndarray:
+    """Unfiltered rows (H, row_bytes) -> samples (H, W, spp): uint16 at 16
+    bits, else uint8 (sub-byte samples unpacked, not yet scaled)."""
+    if depth == 16:
+        s = rows[:, :W * spp * 2].reshape(H, W, spp, 2).astype(np.uint16)
+        return (s[..., 0] << 8) | s[..., 1]
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(H, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        vals = (bits * weights).sum(axis=2)[:, :W * spp].astype(np.uint8)
+    else:
+        vals = rows[:, :W * spp]
+    return vals.reshape(H, W, spp)
+
+
 def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """PNG bytes -> the array ``imageio.v2.imread`` returns (see above)."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -99,32 +119,41 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     W, H, depth, ctype, _, _, interlace = hdr
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG is not supported")
     if ctype not in _SAMPLES or depth not in (1, 2, 4, 8, 16):
         raise ValueError(f"{path}: PNG colour type {ctype} at {depth} bits "
                          f"is not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG interlace method {interlace} is not "
+                         f"supported")
     spp = _SAMPLES[ctype]
-    row_bytes = (W * spp * depth + 7) // 8
+    bpp = max(1, spp * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < H * (row_bytes + 1):
-        raise ValueError(f"{path}: PNG image data too short")
-    raw = raw[:H * (row_bytes + 1)].reshape(H, row_bytes + 1)
-    rows = _unfilter(raw, H, row_bytes, max(1, spp * depth // 8), path)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    dims = [(-(-(H - y0) // dy), -(-(W - x0) // dx))
+            for x0, y0, dx, dy in passes]
+    sizes = [h * ((w * spp * depth + 7) // 8 + 1) if h and w else 0
+             for h, w in dims]
+    if raw.size < sum(sizes):
+        kind = "interlaced (Adam7) " if interlace else ""
+        raise ValueError(f"{path}: {kind}PNG image data too short")
+    vals = np.empty((H, W, spp), np.uint16 if depth == 16 else np.uint8)
+    start = 0
+    for (x0, y0, dx, dy), (h, w), size in zip(passes, dims, sizes):
+        if not size:
+            continue
+        row_bytes = (w * spp * depth + 7) // 8
+        rows = _unfilter(raw[start:start + size].reshape(h, row_bytes + 1),
+                         h, row_bytes, bpp, path)
+        start += size
+        vals[y0::dy, x0::dx] = _samples(rows, h, w, spp, depth)
 
     if depth == 16:
-        s = rows.reshape(H, W, spp, 2).astype(np.uint16)
         if ctype == 0:
-            return (s[..., 0, 0] << 8) | s[..., 0, 1]
-        out = s[..., 0].astype(np.uint8)
-        return out
-    if depth < 8:
-        bits = np.unpackbits(rows, axis=1).reshape(H, -1, depth)
-        weights = 1 << np.arange(depth - 1, -1, -1)
-        vals = (bits * weights).sum(axis=2)[:, :W * spp].astype(np.uint8)
-    else:
-        vals = rows[:, :W * spp]
-    vals = vals.reshape(H, W, spp)
+            return vals[..., 0]
+        hi = (vals >> 8).astype(np.uint8)
+        if ctype == 4:      # PIL reads 16-bit gray + alpha as RGBA
+            return hi[..., [0, 0, 0, 1]]
+        return hi
     if ctype == 3:
         if plte is None:
             raise ValueError(f"{path}: palette PNG without PLTE")

@@ -1,7 +1,7 @@
 """StyleGAN2 resampling primitives in plain torch, NCHW (counterpart of the
 ``bias_act`` / ``setup_filter`` / ``upfirdn2d`` / ``filter2d`` /
-``upsample2d`` / ``downsample2d`` / ``conv2d_resample`` subset of
-``sherf_tpu/kernels/filters.py``; ``filtered_lrelu`` is not ported).  Their
+``upsample2d`` / ``downsample2d`` / ``conv2d_resample`` /
+``filtered_lrelu`` of ``sherf_tpu/kernels/filters.py``).  Their
 convolutions go through ``conv2d``, whose higher-order gradients (R1's)
 are convolutions and convolution-backward calls (cuDNN's dgrad and wgrad
 on the card).
@@ -215,6 +215,24 @@ def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1.0):
          py0 + (fh - downy + 1) // 2, py1 + (fh - downy) // 2]
     return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter,
                      gain=gain)
+
+
+def filtered_lrelu(x: torch.Tensor, fu: Optional[np.ndarray] = None,
+                   fd: Optional[np.ndarray] = None,
+                   b: Optional[torch.Tensor] = None, up: int = 1,
+                   down: int = 1, padding=0, gain: float = _SQRT2,
+                   slope: float = 0.2, clamp: Optional[float] = None,
+                   flip_filter: bool = False) -> torch.Tensor:
+    """StyleGAN3's bias -> FIR upsample (gain ``up ** 2``, ``padding`` =
+    [px0, px1, py0, py1]) -> leaky ReLU, gain, clamp -> FIR downsample,
+    composed as the JAX package composes it (no fused kernel: the JAX
+    function is XLA, not Pallas).  x: (N, C, H, W); fu / fd: 2D numpy
+    filters or None for the identity."""
+    x = bias_act(x, b)
+    x = upfirdn2d(x, fu, up=up, padding=padding, gain=up ** 2,
+                  flip_filter=flip_filter)
+    x = bias_act(x, act="lrelu", alpha=slope, gain=gain, clamp=clamp)
+    return upfirdn2d(x, fd, down=down, flip_filter=flip_filter)
 
 
 def conv2d_resample(x: torch.Tensor, w: torch.Tensor,

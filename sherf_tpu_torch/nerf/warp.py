@@ -151,13 +151,18 @@ def deform_target2c(smpl: SMPLModel, ctx_pose: PoseContext,
 
 
 def deform_c2source_from_tables(ctx_src: PoseContext, ctx_big: PoseContext,
-                                payload: torch.Tensor, q_pts: torch.Tensor):
-    """Canonical big-pose -> source pose given the payload (N, 33).
+                                payload: torch.Tensor, q_pts: torch.Tensor,
+                                weights_correction: Optional[
+                                    torch.Tensor] = None):
+    """Canonical big-pose -> source pose given the payload (N, 33), the
+    blend weights nudged by ``0.2 * weights_correction`` (N, 24) if given.
     Returns (smpl_src (N, 3), world_src (N, 3), bw (N, 24))."""
     bw = payload[:, :24]
     big_off = payload[:, 24:27]
     shape_off = payload[:, 27:30]
     pose_off = payload[:, 30:33]
+    if weights_correction is not None:
+        bw = bw + 0.2 * weights_correction
     bw = bw / bw.sum(dim=-1, keepdim=True)
 
     Rb, tb = _mat_cols(bw @ ctx_big.A.reshape(24, 16))
@@ -170,3 +175,14 @@ def deform_c2source_from_tables(ctx_src: PoseContext, ctx_big: PoseContext,
     world = [sm[0] * Rinv[0, a] + sm[1] * Rinv[1, a] + sm[2] * Rinv[2, a]
              + ctx_src.Th[a] for a in range(3)]
     return torch.stack(sm, dim=-1), torch.stack(world, dim=-1), bw
+
+
+def deform_c2source(smpl: SMPLModel, ctx_src: PoseContext,
+                    ctx_big: PoseContext, vid: torch.Tensor,
+                    q_pts: torch.Tensor,
+                    weights_correction: Optional[torch.Tensor] = None):
+    """As :func:`deform_c2source_from_tables`, gathering the payload by the
+    ids ``vid`` (N,) of the points' nearest canonical vertices."""
+    payload = c2source_tables(smpl, ctx_src, ctx_big)[vid]
+    return deform_c2source_from_tables(ctx_src, ctx_big, payload, q_pts,
+                                       weights_correction)

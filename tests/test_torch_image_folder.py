@@ -8,13 +8,17 @@ with PIL.
     max_size) from a tree and from a zip: equal to JAX's, pixel for pixel
     and label for label.  The port decodes with its own readers; JAX with
     imageio.
-  * ``dataset_tool`` for each transform at an integer shrink and at a
-    non-integer one: the zip's member names and ``dataset.json`` equal to
-    JAX's, and its decoded pixels bit-equal to JAX's (cv2 ``INTER_AREA``)
-    at integer scales and within 1 level (one uint8 step) elsewhere.  The
-    zips' bytes are not compared: the two PNG encoders differ.
-  * What the port does not read raises ``ValueError`` naming the file:
-    progressive JPEG, palette BMP.
+  * ``dataset_tool`` for each transform at an integer shrink, at a
+    non-integer one and enlarging (3x / 2x, and a non-integer factor): the
+    zip's member names and ``dataset.json`` equal to JAX's, and its decoded
+    pixels bit-equal to JAX's (cv2 ``INTER_AREA``) at integer shrinks and
+    when enlarging, within 1 level (one uint8 step) at a non-integer
+    shrink.  The zips' bytes are not compared: the two PNG encoders differ.
+  * ``transform_image`` enlarging (2x, 3x, 2.5x, and one axis shrunk while
+    the other grows, both ways), RGB and RGBA: bit-equal to JAX's (cv2's
+    fixed-point linear pass with area coefficients).
+  * A progressive JPEG's items equal to JAX's; what the port does not read
+    raises ``ValueError`` naming the file: palette BMP.
 """
 
 import io
@@ -161,15 +165,49 @@ def test_bmp_reader_matches_pil(tmp_path):
 
 def test_unsupported_files_raise_naming_the_file(tmp_path):
     rng = np.random.RandomState(3)
-    Image.fromarray(_photo(16, 16, rng)).save(tmp_path / "prog.jpg", "JPEG",
-                                              progressive=True)
-    with pytest.raises(ValueError, match="prog.jpg"):
-        TDataset(str(tmp_path))
-    os.remove(tmp_path / "prog.jpg")
     Image.fromarray(_photo(16, 16, rng)[..., 0], "L").save(
         tmp_path / "pal.bmp", "BMP")
     with pytest.raises(ValueError, match="pal.bmp"):
         TDataset(str(tmp_path))
+
+
+def test_progressive_jpeg_items_match_jax(tmp_path):
+    rng = np.random.RandomState(3)
+    Image.fromarray(_photo(16, 16, rng)).save(tmp_path / "prog.jpg", "JPEG",
+                                              progressive=True)
+    Image.fromarray(_photo(16, 16, rng)).save(tmp_path / "prog2.jpg", "JPEG",
+                                              progressive=True, quality=60,
+                                              subsampling=0)
+    Image.fromarray(_photo(16, 16, rng)).save(tmp_path / "p.png", "PNG")
+    jd, td = JDataset(str(tmp_path)), TDataset(str(tmp_path))
+    try:
+        assert td._files == jd._files == ["p.png", "prog.jpg", "prog2.jpg"]
+        _assert_same_items(jd, td)
+    finally:
+        td.close()
+
+
+@pytest.mark.parametrize("transform,size,hw", [
+    ("center-crop", (80, 80), (40, 40)),          # 2x
+    ("center-crop", (120, 120), (40, 52)),        # 3x
+    ("center-crop", (100, 100), (40, 40)),        # 2.5x
+    ("center-crop", (60, 20), (40, 40)),          # x grows, y shrinks
+    ("center-crop", (24, 70), (44, 40)),          # x shrinks, y grows
+    ("center-crop-wide", (90, 50), (40, 60)),     # crop 60x33 -> 90x50
+], ids=["2x", "3x", "2.5x", "grow_x_shrink_y", "shrink_x_grow_y", "wide"])
+def test_transform_image_enlarges_like_jax(transform, size, hw,
+                                           record_property):
+    rng = np.random.RandomState(sum(size))
+    worst = 0
+    for img in (_photo(*hw, rng), rng.randint(0, 256, hw + (4,)).astype(
+            np.uint8)):
+        want = j_tool.transform_image(img, transform, *size)
+        got = t_tool.transform_image(img, transform, *size)
+        assert got.dtype == np.uint8 and got.shape == want.shape == (
+            size[1], size[0], img.shape[2])
+        worst = max(worst, int(np.abs(got.astype(int) - want).max()))
+    record_property("max_level_diff", worst)
+    assert worst == 0
 
 
 def test_png_writer_round_trips_through_pil():
@@ -208,15 +246,17 @@ def wide_tree(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("transform,resolution,integer", [
+@pytest.mark.parametrize("transform,resolution,exact", [
     ("copy", None, True),
     ("center-crop", "32x32", True),       # 64 -> 32 and 96 -> 32
     ("center-crop", "24x24", False),      # 64 -> 24
     ("center-crop-wide", "32x16", True),  # 64x32 crops -> 32x16
     ("center-crop-wide", "40x30", False),
+    ("center-crop", "192x192", True),     # 64 -> 192 and 96 -> 192
+    ("center-crop-wide", "160x120", True),  # 85x64, 64x48 ... crops grow
 ])
 def test_dataset_tool_matches_jax(wide_tree, tmp_path, transform, resolution,
-                                  integer, record_property):
+                                  exact, record_property):
     jn, jm, jp = _tool_zip(j_tool, str(wide_tree), str(tmp_path / "j.zip"),
                            resolution, transform)
     tn, tm, tp = _tool_zip(t_tool, str(wide_tree), str(tmp_path / "t.zip"),
@@ -231,7 +271,7 @@ def test_dataset_tool_matches_jax(wide_tree, tmp_path, transform, resolution,
         assert a.shape == b.shape, name
         worst = max(worst, int(np.abs(a - b).max()))
     record_property("max_level_diff", worst)
-    assert worst == 0 if integer else worst <= LSB
+    assert worst == 0 if exact else worst <= LSB
     # the port's zip reads back through the port's dataset
     td = TDataset(str(tmp_path / "t.zip"), use_labels=True)
     try:

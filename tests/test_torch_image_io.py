@@ -6,10 +6,18 @@ replace (PIL through imageio, cv2), on the CPU:
     grayscale) and by ``cv2.imwrite`` with a restart interval, and on the
     committed fixtures (``tests/fixtures/jpeg``, written by
     ``tests/fixtures/make_jpeg_fixtures.py``) against their stored decodes;
-    progressive files raise ``ValueError`` naming the file;
+    progressive files written by PIL (4:2:0, 4:4:4, 4:2:2, grayscale, with
+    ``optimize``, with restart markers) and by cv2 bit-equal to imageio; a
+    4:1:1 file (baseline or progressive) and a progressive file cut before
+    its refinement scans (libjpeg would smooth its blocks) raise
+    ``ValueError`` naming the file;
   * ``data/png_read.py``: equal to imageio (values, dtype, shape) on gray,
-    gray + alpha, RGB, RGBA, palette (8- and 4-bit, with ``tRNS``), 1-bit
-    and 16-bit files; interlaced files raise;
+    gray + alpha (8- and 16-bit), RGB, RGBA, palette (8- and 4-bit, with
+    ``tRNS``), 1-bit and 16-bit files; Adam7-interlaced files written here
+    with ``zlib`` (colour types 0 / 2 / 3 / 4 / 6 at every depth the reader
+    takes, filter types 0-4, 1x1, 3x5 and 9x7: passes left empty) equal to
+    imageio and to the non-interlaced file of the same pixels; an
+    interlaced file whose data is short raises naming the file;
   * ``data/imgproc.py``: ``resize_area`` bit-equal to ``cv2.INTER_AREA`` at
     1/2 and 1/3 on 3-channel images, within 1e-6 at 0.75 (measured
     1.2e-7: cv2 sums the area weights in float32, the port in float64);
@@ -103,11 +111,117 @@ def test_jpeg_fixtures_match_their_stored_decodes():
         np.testing.assert_array_equal(got, imageio.imread(path), err_msg=path)
 
 
+def _cv2_jpeg(img, *params):
+    return cv2.imencode(".jpg", img[..., ::-1], list(params))[1].tobytes()
+
+
+PROGRESSIVE = {
+    "420": dict(subsampling=2),
+    "444": dict(subsampling=0, quality=95),
+    "422": dict(subsampling=1, quality=60),
+    "gray": dict(gray=True),
+    "optimize": dict(subsampling=2, optimize=True),
+    "restart_blocks": dict(subsampling=2, restart_marker_blocks=3),
+    "restart_rows_gray": dict(gray=True, optimize=True,
+                              restart_marker_rows=1),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(PROGRESSIVE) + ["cv2_restart"])
+def test_jpeg_progressive_equal_to_imageio(kind):
+    """DC first / refinement scans, AC first scans with end-of-band runs,
+    AC refinement; interleaved DC scans and one-component AC scans."""
+    for hw in ((37, 53), (8, 8), (1, 1)):
+        img = _photo(*hw, seed=hw[0])
+        if kind == "cv2_restart":
+            data = _cv2_jpeg(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                             cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
+        else:
+            kw = dict(PROGRESSIVE[kind])
+            data = _pil_jpeg(img[..., 0] if kw.pop("gray", False) else img,
+                             progressive=True, **kw)
+        assert b"\xff\xc2" in data
+        ref = _imread(data)
+        got = decode_jpeg(data, kind)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, hw
+        np.testing.assert_array_equal(got, ref, err_msg=str(hw))
+
+
 def test_jpeg_progressive_raises_naming_the_file(tmp_path):
-    path = str(tmp_path / "prog.jpg")
-    Image.fromarray(_photo(16, 16, 0)).save(path, "JPEG", progressive=True)
-    with pytest.raises(ValueError, match="prog.jpg.*progressive"):
-        read_image(path)
+    """What the decoder still refuses: 4:1:1 chroma (baseline and
+    progressive), and a progressive file whose last scans are cut (libjpeg
+    smooths such blocks; PIL decodes it, the port does not)."""
+    img = _photo(16, 32, 0)
+    files = {
+        "prog411.jpg": _cv2_jpeg(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+        "base411.jpg": _cv2_jpeg(img, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411)}
+    full = _pil_jpeg(img, progressive=True)
+    cut = full[:full.rindex(b"\xff\xda")] + b"\xff\xd9"
+    assert _imread(cut).shape == img.shape
+    files["cut.jpg"] = cut
+    for name, data in files.items():
+        path = str(tmp_path / name)
+        with open(path, "wb") as f:
+            f.write(data)
+        match = "cut.jpg.*smoothing" if name == "cut.jpg" else \
+            name + ".*sampling"
+        with pytest.raises(ValueError, match=match):
+            read_image(path)
+
+
+def _png_chunk(kind, body):
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _filtered(rows, bpp):
+    """Each row (bytes) behind the filter type ``row index % 5`` (None,
+    Sub, Up, Average, Paeth) applied to it."""
+    out, prev = [], np.zeros(len(rows[0]), np.int64)
+    for i, r in enumerate(rows):
+        a = np.frombuffer(r, np.uint8).astype(np.int64)
+        left = np.concatenate([np.zeros(bpp, np.int64), a[:-bpp]])[:len(a)]
+        ul = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])[:len(a)]
+        p = left + prev - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, prev, ul))
+        ft = i % 5
+        pred = (0, left, prev, (left + prev) // 2, paeth)[ft]
+        out.append(bytes([ft]) + ((a - pred) & 255).astype(np.uint8).tobytes())
+        prev = a
+    return b"".join(out)
+
+
+def _adam7_png(samples, depth, ctype, interlace=1, plte=None):
+    """A PNG of integer samples (H, W) or (H, W, spp), written here: rows
+    packed at ``depth`` bits, filtered, Adam7-interlaced if asked."""
+    samples = samples.reshape(samples.shape[:2] + (-1,))
+    H, W, spp = samples.shape
+    bpp = max(1, spp * depth // 8)
+
+    def rows(s):
+        h, w = s.shape[:2]
+        flat = s.reshape(h, w * spp)
+        if depth == 16:
+            return [r.astype(">u2").tobytes() for r in flat]
+        bits = np.unpackbits(flat.astype(np.uint8)[..., None], axis=2)
+        return [np.packbits(r[:, 8 - depth:].reshape(-1)).tobytes()
+                for r in bits]
+
+    subs = ([samples[y0::dy, x0::dx] for x0, y0, dx, dy in (
+        (0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+        (1, 0, 2, 2), (0, 1, 1, 2))] if interlace else [samples])
+    raw = b"".join(_filtered(rows(s), bpp) for s in subs if s.size)
+    data = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", W, H, depth, ctype, 0, 0, interlace))
+    if plte is not None:
+        data += _png_chunk(b"PLTE", plte.tobytes())
+    return (data + _png_chunk(b"IDAT", zlib.compress(raw))
+            + _png_chunk(b"IEND", b""))
 
 
 def _pil_png(im, **kw):
@@ -126,6 +240,9 @@ def _png_cases():
     return {
         "gray": _pil_png(Image.fromarray(a[..., 0])),
         "gray_alpha": _pil_png(Image.fromarray(a[..., :2], "LA")),
+        "gray_alpha16": _adam7_png(
+            (a[..., :2].astype(np.uint16) * 257)[:9, :7], 16, 4,
+            interlace=0),
         "rgb": _pil_png(rgb),
         "rgb_optimized": _pil_png(rgb, optimize=True),
         "rgba": _pil_png(Image.fromarray(a)),
@@ -150,13 +267,38 @@ def test_png_equal_to_imageio(kind):
 
 
 def test_png_interlaced_raises_naming_the_file():
+    """A 4x4 8-bit gray Adam7 file holds 23 bytes of image data, filter
+    bytes included: passes 1, 4, 5, 6, 7 of 2, 2, 3, 6 and 10 bytes (passes
+    2 and 3 are empty at this size); 22 are too few."""
     chunk = lambda k, d: (struct.pack(">I", len(d)) + k + d
                           + struct.pack(">I", zlib.crc32(k + d) & 0xFFFFFFFF))
-    data = (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1))
-            + chunk(b"IDAT", zlib.compress(b"\0" * 40)) + chunk(b"IEND", b""))
-    with pytest.raises(ValueError, match="mask.png.*interlaced"):
-        decode_png(data, "mask.png")
+    head = (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)))
+    tail = chunk(b"IEND", b"")
+    ok = head + chunk(b"IDAT", zlib.compress(b"\0" * 23)) + tail
+    np.testing.assert_array_equal(decode_png(ok), np.zeros((4, 4), np.uint8))
+    short = head + chunk(b"IDAT", zlib.compress(b"\0" * 22)) + tail
+    with pytest.raises(ValueError, match="mask.png.*interlaced.*too short"):
+        decode_png(short, "mask.png")
+
+
+@pytest.mark.parametrize("ctype,depth", [
+    (0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2),
+    (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)])
+def test_png_adam7_equal_to_imageio(ctype, depth):
+    spp = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    rng = np.random.RandomState(ctype * 17 + depth)
+    for h, w in ((1, 1), (3, 5), (9, 7)):
+        s = rng.randint(0, 1 << depth, (h, w, spp))
+        plte = (rng.randint(0, 256, (1 << depth, 3)).astype(np.uint8)
+                if ctype == 3 else None)
+        data = _adam7_png(s, depth, ctype, 1, plte)
+        ref = _imread(data)
+        got = decode_png(data)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, (h, w)
+        np.testing.assert_array_equal(got, ref, err_msg=str((h, w)))
+        np.testing.assert_array_equal(
+            got, decode_png(_adam7_png(s, depth, ctype, 0, plte)))
 
 
 @pytest.mark.parametrize("shape,scale", [

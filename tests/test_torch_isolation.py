@@ -34,7 +34,9 @@ EXPECTED = ("sherf_tpu_torch.cli.eval", "sherf_tpu_torch.cli.train",
             "sherf_tpu_torch.parallel.reference",
             "sherf_tpu_torch.native", "sherf_tpu_torch.data.bmp",
             "sherf_tpu_torch.data.image_folder",
-            "sherf_tpu_torch.cli.dataset_tool")
+            "sherf_tpu_torch.cli.dataset_tool",
+            "sherf_tpu_torch.features.stylegan3",
+            "sherf_tpu_torch.features.augment")
 
 CHILD = textwrap.dedent(f"""
     import importlib, pkgutil, sys

@@ -131,6 +131,41 @@ def test_warps_match(bodies):
     np.testing.assert_allclose(wt.numpy(), _np(wj), atol=5e-5)
 
 
+def test_deform_c2source_matches(bodies):
+    """The table-gathering ``deform_c2source``, with and without a
+    weights correction, on the canonical vertices (points that lie on the
+    gathered vertex, as the renderer's canonical samples do): atol 1e-5 m."""
+    js, ts, poses = bodies
+    bp = j_smpl.big_pose_params()
+    kw = dict(poses=poses[1][0], shapes=poses[1][1],
+              R=np.asarray(j_smpl.rodrigues(jnp.asarray([[0.1, -0.4, 0.2]],
+                                                        jnp.float32)))[0],
+              Th=np.asarray([0.3, -0.1, 2.5], np.float32))
+    big = dict(poses=bp["poses"], shapes=bp["shapes"],
+               R=np.eye(3, dtype=np.float32), Th=np.zeros(3, np.float32))
+    cj = [j_warp.make_pose_context(js, JPose(**{k: jnp.asarray(v)
+                                               for k, v in d.items()}))
+          for d in (kw, big)]
+    ct = [t_warp.make_pose_context(ts, SMPLPose(**{k: T(np.array(v))
+                                                  for k, v in d.items()}))
+          for d in (kw, big)]
+    rng = np.random.RandomState(3)
+    vid = rng.randint(0, 6890, 700)
+    t_verts = _np(j_smpl.smpl_forward(js, jnp.asarray(bp["poses"]),
+                                      jnp.asarray(bp["shapes"]))[0])
+    q = t_verts[vid]
+    corr = (rng.randn(700, 24) * 0.05).astype(np.float32)
+    for wc in (None, corr):
+        got = t_warp.deform_c2source(ts, ct[0], ct[1], T(vid), T(q),
+                                     None if wc is None else T(wc))
+        want = j_warp.deform_c2source(js, cj[0], cj[1], jnp.asarray(vid),
+                                      jnp.asarray(q),
+                                      None if wc is None else jnp.asarray(wc))
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g.numpy(), _np(w), rtol=0, atol=1e-5)
+
+
 def test_geometry_matches():
     """Rays, AABB near/far, projection and backface culling: f32 rounding
     (atol 1e-5; projected pixels 1e-3).  The backface mask may flip where
