@@ -6,6 +6,9 @@ sm_90a):
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --train-evidence`` runs, after the device and
+build phases, only the training-evidence phase: see ``train_evidence``.)
+
 It builds the port's CUDA kernels with nvcc and drives the paths of
 ``sherf_tpu_torch`` at the production configuration (512x512 rays x 48
 samples, bf16, calibrated budgets — the configuration of ``bench.py``),
@@ -882,6 +885,108 @@ def lifecycle(torch, np, dev, smpl_d, out_dir, shims):
                          n for n, f in fit.items() if any(f["eval"]["overflow"])),
                      "subjects": fit},
     }, cases, errs
+
+
+# ---- the train_evidence phase: the training-evidence tools ---------------
+
+# BASELINE.md's recipes of the JAX tools (train_generalization at 800 steps,
+# lr 1e-3; train_convergence at its defaults) and the gates on their curves
+EVIDENCE_RUNS = (("convergence", "train_convergence", {}),
+                 ("generalization", "train_generalization",
+                  {"steps": 800, "lr": 1e-3}))
+CONV_GAIN_DB = 3.5
+HELD_GAIN_DB = 4.0
+HELD_SEEN_GAP_DB = 1.5
+
+
+def train_evidence(torch, shims):
+    """Phase ``train_evidence``: the training-evidence tools
+    (``EVIDENCE_RUNS``), each from ``init_weights_``.  Every step's
+    launches are counted; the kernel calls of each tool's first step are
+    held against their plain versions (``held_calls``).  The tools raise on
+    a non-finite loss; fails unless every step's overflow is 0, every step
+    launches the train step's kernels, the convergence gain is >=
+    CONV_GAIN_DB, the held-out gain >= HELD_GAIN_DB and the held-out and
+    seen PSNR at the last evaluation within HELD_SEEN_GAP_DB.  Returns the
+    phase's gains, the cases, the max abs errors and each tool's launches
+    per step; each tool's numbers are printed as it ends (phase
+    ``train_evidence_<name>``).
+
+    Not part of the default run (``--train-evidence`` runs it alone): the
+    recipe's density head can die for good, in some card runs of either
+    tool's learning rate (ROADMAP Queue C item 10), and the convergence
+    gate then fails."""
+    import importlib
+
+    from sherf_tpu_torch.kernels import _cuda
+
+    runs, cases, errs = {}, [], dict.fromkeys(HELD, 0.0)
+    per_step_launches = {}
+    for name, module, kwargs in EVIDENCE_RUNS:
+        tool = importlib.import_module(f"sherf_tpu_torch.tools.{module}")
+        rec = Recorder(shims)
+        rec.on = False
+        launches = []
+        orig_make = tool.make_train_step
+
+        def make_counted(*args, _orig=orig_make, _rec=rec, _launches=launches,
+                         **kwargs):
+            step = _orig(*args, **kwargs)
+
+            def counted(*sargs):
+                seen = dict(_cuda.LAUNCHES)
+                _rec.on = not _launches
+                m = step(*sargs)
+                _rec.on = False
+                _launches.append({k: _cuda.LAUNCHES[k] - seen[k]
+                                  for k in seen})
+                return m
+            return counted
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        tool.make_train_step = make_counted
+        try:
+            with rec:
+                res = tool.main(device="cuda", **kwargs)
+            torch.cuda.synchronize()
+        finally:
+            tool.make_train_step = orig_make
+        seconds = time.perf_counter() - ts
+        check(res["max_overflow"] == 0,
+              f"train_evidence {name}: overflow {res['max_overflow']}")
+        check(len(launches) == res["steps"]
+              and all(n == TRAIN_LAUNCHES for n in launches),
+              f"train_evidence {name}: launches per step "
+              f"{[n for n in launches if n != TRAIN_LAUNCHES][:3]}")
+        kept = {k: len(v) for k, v in rec.calls.items()}
+        check(kept == {k: TRAIN_LAUNCHES[k] for k in kept},
+              f"train_evidence {name}: {kept} kernel calls kept")
+        cases += held_calls(torch, rec.calls, f"train_evidence_{name}", errs)
+        rec.calls.clear()
+        per_step_launches[f"train_{name}_step"] = launches[0]
+        runs[name] = {**kwargs, **res, "seconds": round(seconds, 3),
+                      "peak_memory_gb": round(
+                          torch.cuda.max_memory_allocated() / 1e9, 3),
+                      "launches_per_step": launches[0]}
+        # each tool's curves printed before any gate can stop the phase
+        phase(f"train_evidence_{name}", ts, **runs[name])
+    conv, gen = runs["convergence"], runs["generalization"]
+    gain = conv["end_psnr"] - conv["start_psnr"]
+    gap = abs(gen["held_curve"][-1][1] - gen["seen_curve"][-1][1])
+    check(gain >= CONV_GAIN_DB, f"train_convergence gain {gain:.2f} dB < "
+          f"{CONV_GAIN_DB} (curve {conv['psnr_curve']})")
+    check(gen["held_gain_db"] >= HELD_GAIN_DB,
+          f"train_generalization held-out gain {gen['held_gain_db']} dB < "
+          f"{HELD_GAIN_DB} (curve {gen['held_curve']})")
+    check(gap <= HELD_SEEN_GAP_DB, f"train_generalization held-out vs seen "
+          f"{gap:.2f} dB > {HELD_SEEN_GAP_DB}")
+    out = dict(convergence_gain_db=round(gain, 2),
+               held_gain_db=gen["held_gain_db"],
+               held_minus_seen_db=round(gap, 2),
+               tools_seconds=round(conv["seconds"] + gen["seconds"], 3))
+    return out, cases, errs, per_step_launches
 
 
 # ---- the loaders phase: the file-backed datasets through the CLIs --------
@@ -3242,7 +3347,14 @@ def parallel(torch, out_dir, meshes=PAR_MESHES, backend="gloo"):
     return out, cases, errs
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    flags = argparse.ArgumentParser(description="The port on one GPU.")
+    flags.add_argument("--train-evidence", action="store_true",
+                       help="after the device and build phases, run only "
+                       "the training-evidence phase (train_evidence)")
+    args = flags.parse_args(argv)
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_all = time.perf_counter()
     import numpy as np
@@ -3272,9 +3384,11 @@ def main():
                                        reconstruction_loss, training_loop)
     from sherf_tpu_torch.train.checkpoint import latest_checkpoint
 
-    # f32 paths run in full f32: no TF32 in cuDNN convolutions or matmuls
+    # f32 paths run in full f32: no TF32 in cuDNN convolutions or matmuls;
+    # bf16 matmuls sum in f32 (as the entry points' resolve_device sets)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
 
     # ---- device -------------------------------------------------------
@@ -3301,6 +3415,18 @@ def main():
     _cuda.library()
     phase("build", t0, nvcc_seconds=_cuda.BUILD_INFO["seconds"],
           library=os.path.relpath(str(_cuda.library_path())))
+    if args.train_evidence:
+        t0 = time.perf_counter()
+        ev, ev_cases, ev_errs, ev_launches = train_evidence(torch,
+                                                            kernel_shims())
+        phase("train_evidence", t0, **ev, max_abs_err=ev_errs,
+              launches_per_step=ev_launches, cases=ev_cases)
+        phase("total", t_all)
+        print(smi_line, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ---- scene, budgets, model ------------------------------------------
     t0 = time.perf_counter()
@@ -4222,6 +4348,7 @@ def main():
             f"sharded_{path}": n for path, n in row[
                 "launches_per_sharded_phase"]["mesh_1x2"].items()})
     phase("parallel", t0, **par)
+
     phase("kernels", time.perf_counter() - kernels_s,
           cases=cases + branch_cases + life_cases + load_cases + rc_cases
           + gan_cases + par_cases)

@@ -13,7 +13,8 @@ Features come from InceptionV3 with the state dict at
 ``$SHERF_INCEPTION_WEIGHTS``, else from the VGG16 tower of the LPIPS
 weights at ``$SHERF_LPIPS_WEIGHTS``; PPL needs the LPIPS weights.
 ``--resume`` restores a port checkpoint (its EMA weights, as the eval CLI
-does); without it the generator is drawn at random from seed 0.  (The JAX
+does); without it the generator's weights are the JAX modules'
+initializers drawn from seed 0 (``init_weights_``).  (The JAX
 CLI parses ``--resume`` but scores random weights either way.)  Renders
 and features run on ``--device``; the statistics in f64 numpy.
 """
@@ -35,7 +36,7 @@ from sherf_tpu_torch.core.diag import overflow_total
 from sherf_tpu_torch.data.synthetic import make_synthetic_batch
 from sherf_tpu_torch.eval import gan_metrics as gm
 from sherf_tpu_torch.features.inception import inception_extractor
-from sherf_tpu_torch.models.generator import random_init_
+from sherf_tpu_torch.models.generator import init_weights_
 from sherf_tpu_torch.train.lpips import make_lpips
 
 
@@ -71,7 +72,7 @@ def main(argv=None):
     if a.resume:
         load_weights(model, a.resume)
     else:
-        random_init_(model, torch.Generator().manual_seed(0))
+        init_weights_(model, torch.Generator().manual_seed(0))
     model.eval()
 
     def batch(seed):

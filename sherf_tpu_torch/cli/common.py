@@ -30,9 +30,12 @@ from sherf_tpu_torch.smpl.model import load_smpl, synthetic_smpl
 def resolve_device(name: str) -> torch.device:
     """The ``--device`` flag as a device; ``cuda`` without a GPU raises.
     Turns TF32 off for cuDNN convolutions and CUDA matmuls (PyTorch's
-    default lets cuDNN use it)."""
+    default lets cuDNN use it), and cuBLAS's reduced-precision reductions
+    of bf16 matmuls (PyTorch's default lets a split-K GEMM sum its partial
+    products in bf16; the JAX package's bf16 dots sum in f32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available "
@@ -142,12 +145,12 @@ def render_cli_config(depth_resolution: int, white_back: bool = False
 
 def generator_weights(model, resume: Optional[str]):
     """``--resume``: a port checkpoint's EMA weights (as the eval CLI
-    loads them); without it, weights drawn by ``random_init_`` from seed
-    0."""
+    loads them); without it, the JAX modules' initializers drawn by
+    ``init_weights_`` from seed 0 (the JAX CLIs' ``PRNGKey(0)`` init)."""
     if resume:
         from sherf_tpu_torch.cli.eval import load_weights
         load_weights(model, resume)
     else:
-        from sherf_tpu_torch.models.generator import random_init_
-        random_init_(model, torch.Generator().manual_seed(0))
+        from sherf_tpu_torch.models.generator import init_weights_
+        init_weights_(model, torch.Generator().manual_seed(0))
     return model

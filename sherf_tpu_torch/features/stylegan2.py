@@ -38,7 +38,7 @@ class EqualDense(nn.Module):
         self.bias = (nn.Parameter(torch.full((out_features,), float(bias_init)))
                      if bias else None)
         self.activation = activation
-        self.lr_multiplier = lr_multiplier
+        self.lr_multiplier, self.bias_init = lr_multiplier, float(bias_init)
         self.gain = float(lr_multiplier / np.sqrt(in_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

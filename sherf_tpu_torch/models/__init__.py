@@ -1,3 +1,4 @@
-from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+from sherf_tpu_torch.models.generator import (SHERFGenerator, init_weights_,
+                                              random_init_)
 
-__all__ = ["SHERFGenerator", "random_init_"]
+__all__ = ["SHERFGenerator", "init_weights_", "random_init_"]

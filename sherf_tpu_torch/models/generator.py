@@ -16,6 +16,7 @@ the visualizer's cross-section).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -26,10 +27,14 @@ from sherf_tpu_torch.core.config import ModelConfig
 from sherf_tpu_torch.core.diag import Diag
 from sherf_tpu_torch.core.types import SHERFBatch
 from sherf_tpu_torch.features.encoding import positional_encoding
-from sherf_tpu_torch.features.layers import Dense
+from sherf_tpu_torch.features.layers import (Conv2d, Dense, FrozenBatchNorm,
+                                             LayerNorm)
 from sherf_tpu_torch.features.resnet import ResNet18
-from sherf_tpu_torch.features.sparseconv import voxelize_coords
-from sherf_tpu_torch.features.stylegan2 import StyleGAN2Backbone
+from sherf_tpu_torch.features.sparseconv import (
+    MaskedBatchNorm, SparseDown, SparseStage, voxelize_coords)
+from sherf_tpu_torch.features.stylegan2 import (
+    EqualConv2d, EqualDense, StyleGAN2Backbone, SynthesisBlock, SynthesisLayer,
+    ToRGBLayer)
 from sherf_tpu_torch.features.superresolution import SuperresolutionHybrid
 from sherf_tpu_torch.geometry.rays import backface_mask, project_points
 from sherf_tpu_torch.kernels.grid_sample import grid_sample_2d
@@ -212,12 +217,107 @@ class SHERFGenerator(nn.Module):
                               flat_output=flat_output)
 
 
+# flax's ``truncated_normal`` cuts a unit normal at +-2, whose spread is
+# then this share of 1: lecun_normal divides its std by it
+TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, std: float, generator: torch.Generator):
+    """flax's ``variance_scaling(..., "truncated_normal")`` draw: a unit
+    normal cut at +-2 by the inverse CDF (as ``jax.random.truncated_normal``),
+    times ``std / TRUNC_STD``, so the spread after the cut is ``std``."""
+    lo = math.erf(-2.0 / math.sqrt(2.0))
+    u = torch.rand(shape, generator=generator).mul_(-2.0 * lo).add_(lo)
+    x = u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return x.mul_(std / TRUNC_STD)
+
+
+def _jax_init(mod: nn.Module, leaf: str, shape, generator: torch.Generator):
+    """The value flax's ``model.init`` gives the leaf ``leaf`` of ``mod``'s
+    counterpart, drawn from ``generator`` (see :func:`init_weights_`)."""
+    normal = lambda std: torch.randn(shape, generator=generator).mul_(std)
+    if isinstance(mod, (Dense, Conv2d)):
+        if leaf == "weight":        # (out, in[, kh, kw]): fan-in in[*kh*kw]
+            return _truncated_normal(shape, math.sqrt(
+                1.0 / int(np.prod(shape[1:]))), generator)
+        if leaf == "bias":
+            return torch.zeros(shape)
+    elif isinstance(mod, (FrozenBatchNorm, LayerNorm, MaskedBatchNorm)):
+        if leaf in ("weight", "bias"):
+            return torch.full(shape, 1.0 if leaf == "weight" else 0.0)
+    elif isinstance(mod, (SparseStage, SparseDown)):
+        if leaf.startswith("conv"):  # (3, 3, 3, Ci, Co): fan-in 27 * Ci
+            return normal(math.sqrt(1.0 / int(np.prod(shape[:-1]))))
+    elif isinstance(mod, EqualDense):
+        if leaf == "weight":
+            return normal(1.0 / mod.lr_multiplier)
+        if leaf == "bias":
+            return torch.full(shape, mod.bias_init)
+    elif isinstance(mod, (EqualConv2d, SynthesisLayer, ToRGBLayer)):
+        if leaf == "weight":
+            return normal(1.0)
+        if leaf in ("bias", "noise_strength"):
+            return torch.zeros(shape)
+    elif isinstance(mod, SynthesisBlock) and leaf == "const":
+        return normal(1.0)
+    raise TypeError(f"no JAX initializer known for parameter {leaf!r} of a "
+                    f"{type(mod).__name__}")
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Redraw every parameter of ``model`` (a ``SHERFGenerator`` in any
+    branch of ``ModelConfig``, or one of its parts) from the initializer of
+    its counterpart in the JAX package, as flax's ``model.init`` does:
+
+      * ``nn.Dense`` / ``nn.Conv`` kernels (``features/resnet.py:36-64``,
+        ``features/transformer.py:31-67``, ``nerf/decoders.py:65-79``,
+        ``nerf/renderer.py:138-145``, ``models/generator.py:54``):
+        lecun_normal, a normal cut at +-2 sigma with spread
+        sqrt(1 / fan_in), fan_in = in for a Dense, in x kh x kw for a Conv;
+        their biases zeros;
+      * ``nn.BatchNorm`` (``features/resnet.py:33-35, 66-67``),
+        ``nn.LayerNorm`` (``features/transformer.py:85-87``) and
+        ``MaskedBatchNorm`` (``features/sparseconv.py:779-780``): scale
+        ones, bias zeros;
+      * sparse convs (``features/sparseconv.py:823, 836, 860``):
+        ``variance_scaling(1, "fan_in", "normal")``, an untruncated normal
+        of std sqrt(1 / (27 x Ci));
+      * StyleGAN2 ``FullyConnected`` (``EqualDense``,
+        ``features/stylegan2.py:52, 58``): weight normal(1 /
+        lr_multiplier), bias ``bias_init``, each layer's own: the mapping
+        network's lr_multiplier 0.01 (``:324``, std 100), the affines'
+        bias_init 1 (``:155, 204``), the OSG decoder's lr_multiplier 1
+        (``nerf/decoders.py:25, 32-36``);
+      * StyleGAN2 conv weights and ``const`` normal(1), their biases and
+        ``noise_strength`` zeros (``features/stylegan2.py:79, 89, 156,
+        159, 163, 206, 209, 237``), in the backbone and the SR head
+        (``features/superresolution.py:44-56``).
+
+    The draws come from ``generator`` only, on the CPU, and are then copied
+    to the parameters' device and dtype.  Buffers keep their values, which
+    are those of JAX's non-param collections at init: running means 0 and
+    variances 1 (``sparseconv.py:781-782``, flax's ``BatchNorm``), the
+    noise buffers ``RandomState(resolution)``'s (``stylegan2.py:166-170``),
+    ``w_avg`` 0 (``stylegan2.py:336``).  A parameter of a module the JAX
+    package does not have raises ``TypeError``."""
+    for _, mod in model.named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            p.copy_(_jax_init(mod, leaf, tuple(p.shape), generator))
+    return model
+
+
 @torch.no_grad()
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every float parameter of ``model`` from N(0, 1 / fan_in)
     (N(0, 1) for the unit-scale weights and scalars of StyleGAN2's layers:
     the backbone, the SR head, the OSG decoder), using only ``generator``.
-    Buffers (running statistics, noise) keep their values."""
+    Buffers (running statistics, noise) keep their values.
+
+    This is not the JAX package's init (that is :func:`init_weights_`):
+    norm scales and biases come from N(0, 0.01) and the mapping network's
+    weights from N(0, 1).  Tests and card checks that want random weights
+    which render a body take it, with the decoder's density bias raised."""
     unit = tuple(f"{n}." if n else "" for n, m in model.named_modules()
                  if isinstance(m, (StyleGAN2Backbone, SuperresolutionHybrid,
                                    OSGDecoder)))

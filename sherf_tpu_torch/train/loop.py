@@ -2,10 +2,12 @@
 
 Same order as the JAX loop: build the dataset pipeline (or take the
 caller's ``batch_source``), size the canonical volume over every served
-subject, calibrate the budgets when asked, build the model and the train
-state, run the steps, accumulate metrics on the device and flush their
-means every report interval, snapshot with a sample grid rendered by the
-EMA weights.  With ``tcfg.adv_weight > 0`` each step runs the adversarial
+subject, calibrate the budgets when asked, build the model (its weights
+the JAX modules' initializers drawn from ``tcfg.seed`` by
+``init_weights_``, as the JAX loop's ``model.init``) and the train state,
+run the steps, accumulate metrics on the device and flush their means
+every report interval, snapshot with a sample grid rendered by the EMA
+weights.  With ``tcfg.adv_weight > 0`` each step runs the adversarial
 phases (``train/gan.py``): Gmain, then Dmain, then Dreg on the steps that
 are a multiple of ``d_reg_interval`` (step 0 included), with a
 ``DualDiscriminator`` at the batches' image size, drawn from ``tcfg.seed +
@@ -50,7 +52,7 @@ from sherf_tpu_torch.data.sampler import InfiniteSampler, PrefetchLoader
 from sherf_tpu_torch.eval.png import write_png
 from sherf_tpu_torch.eval.test_loop import to8b
 from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
-from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+from sherf_tpu_torch.models.generator import SHERFGenerator, init_weights_
 from sherf_tpu_torch.parallel.mesh import (all_reduce_, make_mesh,
                                            shard_batch, shard_generator)
 from sherf_tpu_torch.parallel.multihost import (coordination_barrier,
@@ -206,7 +208,7 @@ def _train(cfg, tcfg, smpl, batch_source, subject_bodies, calibrate, device,
     img_res = example.img.shape[1]      # the D's size (square images only)
     del example
     model = SHERFGenerator(cfg, out_sh=out_sh, device=device)
-    random_init_(model, torch.Generator().manual_seed(tcfg.seed))
+    init_weights_(model, torch.Generator().manual_seed(tcfg.seed))
     state = create_train_state(model, tcfg)
     if tcfg.resume:
         restore_checkpoint(tcfg.resume, state)

@@ -76,12 +76,14 @@ from sherf_tpu_torch.features.superresolution import (
     SuperresolutionHybrid, resize_bilinear)
 from sherf_tpu_torch.geometry.rays import backface_mask as t_backface_mask
 from sherf_tpu_torch.kernels.capsules import capsule_mask, capsule_radii, prune_mask
-from sherf_tpu_torch.models.generator import SHERFGenerator, random_init_
+from sherf_tpu_torch.models.generator import (SHERFGenerator, init_weights_,
+                                              random_init_)
 from sherf_tpu_torch.nerf.decoders import OSGDecoder
 from sherf_tpu_torch.nerf.importance import sample_importance, sample_pdf
 from sherf_tpu_torch.nerf.warp import batch_pose_contexts
 from sherf_tpu_torch import smpl as t_smpl
 from sherf_tpu_torch import train as t_train
+from torch_init_check import init_rejections
 
 T = torch.from_numpy
 H = W = 16
@@ -253,6 +255,12 @@ def test_osg_decoder_matches_jax():
     sf = rng.normal(0, 1, (3, 500, 32)).astype(np.float32)
     jd = j_dec.OSGDecoder()
     v = jax.device_get(jd.init(jax.random.PRNGKey(1), jnp.asarray(sf)))
+    # the port's init of the branch against that JAX init, leaf by leaf
+    # (``tests/torch_init_check.py``): EqualDense weights normal(1 /
+    # lr_multiplier), biases ``bias_init``
+    bad, _ = init_rejections(init_weights_(
+        OSGDecoder(), torch.Generator().manual_seed(1)), v, from_flax)
+    assert not bad, bad
     v["params"]["fc1"]["bias"] = rng.normal(0, 1, 4).astype(np.float32)
     ref = jax.device_get(jd.apply(v, jnp.asarray(sf)))
     td = OSGDecoder()

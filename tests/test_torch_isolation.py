@@ -36,7 +36,10 @@ EXPECTED = ("sherf_tpu_torch.cli.eval", "sherf_tpu_torch.cli.train",
             "sherf_tpu_torch.data.image_folder",
             "sherf_tpu_torch.cli.dataset_tool",
             "sherf_tpu_torch.features.stylegan3",
-            "sherf_tpu_torch.features.augment")
+            "sherf_tpu_torch.features.augment",
+            "sherf_tpu_torch.tools.train_convergence",
+            "sherf_tpu_torch.tools.train_generalization",
+            "sherf_tpu_torch.tools.convergence_draws")
 
 CHILD = textwrap.dedent(f"""
     import importlib, pkgutil, sys

@@ -1,8 +1,10 @@
 """Every CLI of the port runs its f32 convolutions and matmuls in full
-f32: with both TF32 switches first set on (PyTorch's cuDNN default), each
-CLI's ``main`` turns them off when it resolves its device.  The run is
-stopped right after the device is resolved (``resolve_device`` wrapped to
-raise once it has returned), so nothing else runs."""
+f32, and sums its bf16 matmuls in f32: with both TF32 switches and
+cuBLAS's bf16 reduced-precision reduction first set on (PyTorch's
+defaults, but for the matmul TF32), each CLI's ``main`` turns them off
+when it resolves its device.  The run is stopped right after the device is
+resolved (``resolve_device`` wrapped to raise once it has returned), so
+nothing else runs."""
 
 import importlib
 
@@ -28,13 +30,15 @@ class _Resolved(Exception):
 
 @pytest.fixture
 def tf32_on():
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
+    matmul = torch.backends.cuda.matmul
+    flags = (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
+    matmul.allow_tf32 = True
+    matmul.allow_bf16_reduced_precision_reduction = True
     yield
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
-        flags
+    (torch.backends.cudnn.allow_tf32, matmul.allow_tf32,
+     matmul.allow_bf16_reduced_precision_reduction) = flags
 
 
 @pytest.mark.parametrize("name", sorted(CLIS))
@@ -50,3 +54,5 @@ def test_cli_turns_tf32_off(name, tf32_on, monkeypatch):
         cli.main(CLIS[name] + ["--device", "cpu"])
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+        is False

@@ -27,6 +27,10 @@ same numpy inputs made from a seed and the same weights.
   * the bf16 budgeted gradients (the production dtype) against JAX's bf16
     ones, gated by JAX's own bf16 error (see BF16_GRAD_FACTOR); JAX's f32
     budgeted gradients are computed once for both budgeted tests;
+  * ``init_weights_`` against the fixture's JAX ``model.init`` leaf by leaf
+    (``tests/torch_init_check.py``: constants exact, std within 5 standard
+    errors, lecun kernels cut at 2 sigma); the same check rejects
+    ``random_init_``;
   * a 3-step ``training_loop`` through ``batch_source``: stats.jsonl holds
     the final partial interval, and its checkpoint restores bit-exactly
     (the loop through ``build_dataset`` is in ``tests/test_torch_eval.py``).
@@ -69,11 +73,13 @@ from sherf_tpu_torch.features import stylegan2 as t_sg2
 from sherf_tpu_torch.features.sparseconv import prepare_voxel_volume
 from sherf_tpu_torch.geometry.rays import backface_mask as t_backface_mask
 from sherf_tpu_torch.kernels import segment_accum as t_sa
-from sherf_tpu_torch.models.generator import SHERFGenerator
+from sherf_tpu_torch.models.generator import (SHERFGenerator, init_weights_,
+                                              random_init_)
 from sherf_tpu_torch.nerf.warp import batch_pose_contexts
 from sherf_tpu_torch import smpl as t_smpl
 from sherf_tpu_torch import train as t_train
 from sherf_tpu_torch.train.checkpoint import latest_checkpoint, restore_checkpoint
+from torch_init_check import init_rejections
 
 T = torch.from_numpy
 
@@ -442,6 +448,26 @@ def grad_scene():
                              for b in range(tb.obs_vertices.shape[0])])
     return dict(js=js, ts=ts, jb=jb, tb=tb, v=v, out_sh=out_sh, render=render,
                 t_coords=t_coords.numpy(), t_vis=t_vis.numpy())
+
+
+def test_init_weights_draw_the_jax_initializers(grad_scene, record_property):
+    """``init_weights_`` (seed 0) against the JAX package's ``model.init``
+    (the fixture's, PRNGKey(0), at GRAD_KW), leaf by leaf
+    (``tests/torch_init_check.py``): constants exact, std within 5
+    standard errors, lecun_normal kernels cut at 2 sigma, the other normals
+    not, buffers equal.  The same check rejects ``random_init_``'s draw
+    (the trainer's before the JAX initializers were ported); the first
+    leaf it rejects is recorded."""
+    m = SHERFGenerator(ModelConfig(**GRAD_KW), out_sh=grad_scene["out_sh"],
+                       device="cpu")
+    init_weights_(m, torch.Generator().manual_seed(0))
+    bad, pooled = init_rejections(m, grad_scene["v"], from_flax)
+    record_property("pooled_leaves", {str(k): v for k, v in pooled.items()})
+    assert not bad, bad
+    random_init_(m, torch.Generator().manual_seed(0))
+    bad, _ = init_rejections(m, grad_scene["v"], from_flax)
+    record_property("random_init_first_rejected", bad[0] if bad else None)
+    assert bad
 
 
 def _render_config(scene, mode):
